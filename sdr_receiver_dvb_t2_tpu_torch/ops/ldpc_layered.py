@@ -1,14 +1,20 @@
-"""Layered offset-min-sum QC-LDPC decoder with batch-lockstep adaptive exit.
+"""Layered offset-min-sum QC-LDPC decoders: the ports of the TPU kernels
+K1-K4 of `sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py` and their front doors.
 
-Port of the TPU kernel K1, `make_pallas_layered_vmem_adaptive_io` and its
-front door `make_adaptive_decoder_nb_fused_io`
-(`sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py`).  Two implementations of
-one function:
+| kernel | TPU kernel                             | front door here                      |
+|--------|----------------------------------------|--------------------------------------|
+| K1     | `make_pallas_layered_vmem_adaptive_io` | `make_adaptive_decoder_nb_fused_io`  |
+| K2     | `make_pallas_layered_vmem_adaptive`    | `make_adaptive_decoder_nb_fused`     |
+| K3     | `make_pallas_layered_vmem`             | `make_decoder_nb` (variant "vmem")   |
+| K4     | `make_pallas_layered`                  | `make_decoder_nb` (variant "hbm")    |
+
+Two implementations of each:
 
 - `csrc/ldpc_layered.cu`, the hand-written CUDA kernel, for CUDA tensors;
-- the plain PyTorch version below (a port of `_build_one_iteration` with
-  the bf16 message emulation, `qc_syndrome_weight` and K1's exit loop),
-  which is the kernel's reference and the path CPU tensors take.
+- a plain PyTorch version below (ports of `_build_one_iteration` with the
+  bf16 message emulation, of K4's own layer body, of `qc_syndrome_weight`
+  and of the exit loops), which is the kernel's reference and the path CPU
+  tensors take.
 
 Both compute exactly the same bits and sweep count: every float operation
 is the same IEEE f32 operation in the same order.
@@ -16,6 +22,7 @@ is the same IEEE f32 operation in the same order.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -31,7 +38,7 @@ OFFSET = 0.5      # offset min-sum correction
 
 
 # --------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch versions
 # --------------------------------------------------------------------------
 
 def _stage_nb(tab: QCTables, v: torch.Tensor):
@@ -72,12 +79,18 @@ def _syndrome_weight(tab: QCTables, total_info, total_par) -> torch.Tensor:
     return bad
 
 
-def layered_sweep(tab: QCTables, order: list, ti, tp, c2v) -> None:
-    """One layered sweep, in place, over f32 totals ti (G+1, 360, B),
-    tp (q, 360, B) and messages c2v (q, degmax+2, 360, B) that hold
-    bf16-rounded values (slot j < deg: info edge j; deg: parity self;
-    deg+1: parity prev).  New messages round to bf16 and the rounded value
-    feeds the totals, as the kernel stores them."""
+def _stored(x: torch.Tensor, c2v_dtype) -> torch.Tensor:
+    """A new message as the kernel stores it (bf16 rounding or f32)."""
+    return x.to(torch.bfloat16).float() if c2v_dtype == torch.bfloat16 else x
+
+
+def layered_sweep(tab: QCTables, order: list, ti, tp, c2v,
+                  c2v_dtype=torch.bfloat16) -> None:
+    """One layered sweep of K1-K3 (`_make_layer_step`, two_min="scan"), in
+    place, over f32 totals ti (G+1, 360, B), tp (q, 360, B) and messages
+    c2v (q, degmax+2, 360, B) (slot j < deg: info edge j; deg: parity self;
+    deg+1: parity prev).  New messages are stored in `c2v_dtype` (bf16
+    rounding, or f32) and the stored value feeds the totals."""
     q = tab.q
     mask0 = torch.zeros((NU, 1), device=ti.device)
     mask0[0] = BIG
@@ -110,7 +123,7 @@ def layered_sweep(tab: QCTables, order: list, ti, tp, c2v) -> None:
             # leave-one-out without argmin: ties make min2 == min1
             loo = torch.where(a <= min1, mag2, mag1)
             sgn = torch.where(m < 0, -sign_all, sign_all)
-            new.append((sgn * loo).to(torch.bfloat16).float())
+            new.append(_stored(sgn * loo, c2v_dtype))
         for j, (g, s) in enumerate(edges):
             ti[g] += torch.roll(new[j] - c2v[t, j], -s, 0)
         tp[t] = msgs[deg] + new[deg]
@@ -124,6 +137,71 @@ def layered_sweep(tab: QCTables, order: list, ti, tp, c2v) -> None:
         c2v[t, :deg + 2] = torch.stack(new)
 
 
+def layered_sweep_hbm(tab: QCTables, ti, tp, c2v) -> None:
+    """One sweep of K4's layer body (`make_pallas_layered`), in place, in
+    natural layer order, with f32 messages (nothing rounds to bf16).
+    Unlike `layered_sweep` its c2v slots are
+    (q, degmax+2, 360, B) with info edge j at slot j, parity self at degmax
+    and parity prev at degmax+1; the unused info slots j >= deg enter the
+    two-minimum scan as +BIG messages (and store 0); the leave-one-out
+    minimum goes to the argmin of the strict-< scan."""
+    q, dm = tab.q, tab.degmax
+    e = dm + 2
+    u_last = torch.zeros((NU, 1), dtype=torch.bool, device=ti.device)
+    u_last[NU - 1] = True
+    zeros = torch.zeros((NU, 1), device=ti.device)
+    for t in range(q):
+        deg = int(tab.layer_deg[t])
+        edges = [(int(tab.entry_g[t, j]), int(tab.entry_s[t, j]))
+                 for j in range(deg)]
+        msgs = [torch.roll(ti[g], s, 0) - c2v[t, j]
+                for j, (g, s) in enumerate(edges)]
+        msgs += [torch.full_like(tp[t], BIG) for _ in range(deg, dm)]
+        msgs.append(tp[t] - c2v[t, dm])
+        mask0 = zeros.clone()
+        if t == 0:
+            mask0[0] = BIG
+            prev_al = torch.roll(tp[q - 1], 1, 0)
+        else:
+            prev_al = tp[t - 1]
+        msgs.append(prev_al - c2v[t, e - 1] + mask0)
+        min1 = msgs[0].abs()
+        min2 = torch.full_like(min1, BIG)
+        amin = torch.zeros(min1.shape, dtype=torch.int64, device=ti.device)
+        nneg = (msgs[0] < 0).int()
+        for j in range(1, e):
+            aj = msgs[j].abs()
+            is_new = aj < min1
+            min2 = torch.where(is_new, min1, torch.minimum(min2, aj))
+            min1 = torch.where(is_new, aj, min1)
+            amin = torch.where(is_new, j, amin)
+            nneg = nneg + (msgs[j] < 0).int()
+        sign_all = 1.0 - 2.0 * (nneg % 2).float()
+        newc = []
+        for j in range(e):
+            loo = torch.where(amin == j, min2, min1)
+            sgn = sign_all * torch.where(msgs[j] < 0, -1.0, 1.0)
+            newc.append(sgn * torch.clamp(loo - OFFSET, min=0.0))
+        for j in range(dm):
+            if j < deg:
+                g, s = edges[j]
+                ti[g] = ti[g] + torch.roll(newc[j] - c2v[t, j], -s, 0)
+                c2v[t, j] = newc[j]
+            else:
+                c2v[t, j] = 0.0
+        tp[t] = msgs[dm] + newc[dm]
+        c2v[t, dm] = newc[dm]
+        prev_new = msgs[e - 1] + newc[e - 1] - mask0
+        if t == 0:
+            # aligned slot u maps to par[q-1][u-1]; par[q-1][359] keeps
+            # its value
+            tp[q - 1] = torch.where(u_last, tp[q - 1],
+                                    torch.roll(prev_new, -1, 0))
+        else:
+            tp[t - 1] = prev_new
+        c2v[t, e - 1] = newc[e - 1]
+
+
 def _unstage_bits(tab: QCTables, ti, tp) -> torch.Tensor:
     b = ti.shape[-1]
     info = ti[:tab.n_groups].reshape(tab.k, b)
@@ -133,10 +211,10 @@ def _unstage_bits(tab: QCTables, ti, tp) -> torch.Tensor:
 
 def decode_plain(tab: QCTables, order: list, v: torch.Tensor, min_it,
                  max_iters: int, check_every: int, min_iters: int):
-    """K1's semantics in plain PyTorch: sweeps in chunks of check_every;
-    the whole batch's syndrome is counted once the sweep count reaches
-    max(min_it, min_iters); stop when it is 0; the count is max_iters if
-    it never is.  -> (bits (N, B) uint8, iters () int32)."""
+    """K1's and K2's semantics in plain PyTorch: sweeps in chunks of
+    check_every; the whole batch's syndrome is counted once the sweep count
+    reaches max(min_it, min_iters); stop when it is 0; the count is
+    max_iters if it never is.  -> (bits (N, B) uint8, iters () int32)."""
     ti, tp = _stage_nb(tab, v)
     c2v = torch.zeros((tab.q, tab.degmax + 2) + tp.shape[1:],
                       device=v.device)
@@ -154,17 +232,39 @@ def decode_plain(tab: QCTables, order: list, v: torch.Tensor, min_it,
             torch.tensor(iters, dtype=torch.int32, device=v.device))
 
 
+def decode_fixed_plain(tab: QCTables, v: torch.Tensor, iters: int,
+                       variant: str) -> torch.Tensor:
+    """K3 ("vmem", bf16 c2v) or K4 ("hbm", f32 c2v): exactly `iters`
+    sweeps in natural layer order from f32 totals, no syndrome check.
+    -> bits (N, B) uint8."""
+    ti, tp = _stage_nb(tab, v.float())
+    c2v = torch.zeros((tab.q, tab.degmax + 2) + tp.shape[1:],
+                      device=v.device)
+    order = list(range(tab.q))
+    for _ in range(iters):
+        if variant == "hbm":
+            layered_sweep_hbm(tab, ti, tp, c2v)
+        else:
+            layered_sweep(tab, order, ti, tp, c2v)
+    return _unstage_bits(tab, ti, tp)
+
+
 # --------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers: one per TPU kernel, each with its own launch count
 # --------------------------------------------------------------------------
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ldpc_layered")
-    if lib.ldpc_layered_decode.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ldpc_layered_decode.argtypes = [p] * 8 + [i] * 9 + [
-            ctypes.c_float, p]
-        lib.ldpc_layered_decode.restype = i
+    if lib.ldpc_k1_decode.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for name in ("ldpc_k1_decode", "ldpc_k2_decode"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * 8 + [i] * 9 + [f, p]
+            fn.restype = i
+        for name in ("ldpc_k3_decode", "ldpc_k4_decode"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * 7 + [i] * 7 + [f, p]
+            fn.restype = i
         lib.ldpc_layered_max_groups.restype = i
         lib.ldpc_layered_emax.restype = i
         lib.ldpc_layered_error_string.argtypes = [i]
@@ -182,74 +282,150 @@ def pack_tables(tab: QCTables, order: list) -> np.ndarray:
                            np.asarray(dup)]).astype(np.int32)
 
 
-def ldpc_layered_cuda(tab: QCTables, tables: torch.Tensor, v: torch.Tensor,
-                      min_it: torch.Tensor, max_iters: int, check_every: int,
-                      min_iters: int):
-    """Launch the CUDA decoder on (N, B) bf16 LLRs on the card.
-    -> (bits (N, B) uint8, iters () int32 on the card); nothing is read
-    back to the host."""
+def _prepare(name: str, tab: QCTables, tables: torch.Tensor,
+             v: torch.Tensor, in_dtype, c2v_dtype):
+    """Check the inputs of one launch and allocate its outputs and
+    scratch.  -> (lib, x (B, N) codeword-major, bits, ti, tp, c2v, ctl)."""
     if not v.is_cuda:
-        raise ValueError("ldpc_layered_cuda needs a CUDA tensor")
-    if v.dtype != torch.bfloat16 or v.dim() != 2 or v.shape[0] != tab.n:
-        raise ValueError(f"expected ({tab.n}, B) bf16 LLRs, got "
-                         f"{tuple(v.shape)} {v.dtype}")
-    if tables.device != v.device or min_it.device != v.device:
-        raise ValueError("tables, min_it and LLRs must share a device")
-    if min_it.dtype != torch.int32 or min_it.numel() != 1:
-        raise ValueError("min_it must be one int32")
+        raise ValueError(f"{name} needs a CUDA tensor")
+    if v.dtype != in_dtype or v.dim() != 2 or v.shape[0] != tab.n:
+        raise ValueError(f"{name}: expected ({tab.n}, B) {in_dtype} LLRs, "
+                         f"got {tuple(v.shape)} {v.dtype}")
+    if tables.device != v.device:
+        raise ValueError(f"{name}: tables and LLRs must share a device")
     lib = _lib()
     if tab.n_groups > lib.ldpc_layered_max_groups() \
             or tab.degmax + 2 > lib.ldpc_layered_emax():
         raise ValueError("code exceeds the kernel's shared-memory or "
                          "edge-register budget")
-    b = v.shape[1]
-    dev = v.device
+    b, dev = v.shape[1], v.device
     x = v.t().contiguous()                           # (B, N) codeword-major
     bits = torch.empty((b, tab.n), dtype=torch.uint8, device=dev)
     ti = torch.empty((b, tab.n_groups, NU), dtype=torch.float32, device=dev)
     tp = torch.empty((b, tab.q, NU), dtype=torch.float32, device=dev)
-    c2v = torch.empty((b, tab.q, tab.degmax + 2, NU), dtype=torch.bfloat16,
+    c2v = torch.empty((b, tab.q, tab.degmax + 2, NU), dtype=c2v_dtype,
                       device=dev)
     ctl = torch.empty(4, dtype=torch.int32, device=dev)
-    mi = min_it.contiguous()
-    err = lib.ldpc_layered_decode(
-        x.data_ptr(), bits.data_ptr(), ti.data_ptr(), tp.data_ptr(),
-        c2v.data_ptr(), ctl.data_ptr(), tables.data_ptr(), mi.data_ptr(),
-        b, tab.n, tab.k, tab.n_groups, tab.q, tab.degmax, max_iters,
-        check_every, min_iters, OFFSET,
-        torch.cuda.current_stream(dev).cuda_stream)
+    return lib, x, bits, ti, tp, c2v, ctl
+
+
+def _raise_on(lib, name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError("ldpc_layered_decode: "
+        raise RuntimeError(f"{name}: "
                            + lib.ldpc_layered_error_string(err).decode())
-    ldpc_layered_cuda.launches += 1
+
+
+def _adaptive_launch(name, in_dtype, tab, tables, v, min_it, max_iters,
+                     check_every, min_iters):
+    if min_it.device != v.device or min_it.dtype != torch.int32 \
+            or min_it.numel() != 1:
+        raise ValueError(f"{name}: min_it must be one int32 on the LLRs' "
+                         "device")
+    lib, x, bits, ti, tp, c2v, ctl = _prepare(name, tab, tables, v,
+                                              in_dtype, torch.bfloat16)
+    mi = min_it.contiguous()
+    fn = getattr(lib, "ldpc_k1_decode" if in_dtype == torch.bfloat16
+                 else "ldpc_k2_decode")
+    err = fn(x.data_ptr(), bits.data_ptr(), ti.data_ptr(), tp.data_ptr(),
+             c2v.data_ptr(), ctl.data_ptr(), tables.data_ptr(), mi.data_ptr(),
+             v.shape[1], tab.n, tab.k, tab.n_groups, tab.q, tab.degmax,
+             max_iters, check_every, min_iters, OFFSET,
+             torch.cuda.current_stream(v.device).cuda_stream)
+    _raise_on(lib, name, err)
     return bits.t().contiguous(), ctl[1]
 
 
-ldpc_layered_cuda.launches = 0
+def _fixed_launch(name, k_fn, tab, tables, v, iters, c2v_dtype):
+    lib, x, bits, ti, tp, c2v, ctl = _prepare(name, tab, tables, v,
+                                              torch.float32, c2v_dtype)
+    err = getattr(lib, k_fn)(
+        x.data_ptr(), bits.data_ptr(), ti.data_ptr(), tp.data_ptr(),
+        c2v.data_ptr(), ctl.data_ptr(), tables.data_ptr(), v.shape[1], tab.n,
+        tab.k, tab.n_groups, tab.q, tab.degmax, iters, OFFSET,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    _raise_on(lib, name, err)
+    return bits.t().contiguous()
+
+
+def ldpc_layered_cuda(tab: QCTables, tables: torch.Tensor, v: torch.Tensor,
+                      min_it: torch.Tensor, max_iters: int, check_every: int,
+                      min_iters: int):
+    """K1: (N, B) bf16 LLRs on the card -> (bits (N, B) uint8, iters ()
+    int32 on the card); nothing is read back to the host."""
+    out = _adaptive_launch("ldpc_layered_cuda", torch.bfloat16, tab, tables,
+                           v, min_it, max_iters, check_every, min_iters)
+    ldpc_layered_cuda.launches += 1
+    return out
+
+
+def ldpc_layered_adaptive_cuda(tab: QCTables, tables: torch.Tensor,
+                               v: torch.Tensor, min_it: torch.Tensor,
+                               max_iters: int, check_every: int,
+                               min_iters: int):
+    """K2: as K1 from (N, B) f32 LLRs, which are never rounded."""
+    out = _adaptive_launch("ldpc_layered_adaptive_cuda", torch.float32, tab,
+                           tables, v, min_it, max_iters, check_every,
+                           min_iters)
+    ldpc_layered_adaptive_cuda.launches += 1
+    return out
+
+
+def ldpc_layered_vmem_cuda(tab: QCTables, tables: torch.Tensor,
+                           v: torch.Tensor, iters: int):
+    """K3: `iters` sweeps from (N, B) f32 LLRs, bf16 c2v -> bits (N, B)
+    uint8."""
+    out = _fixed_launch("ldpc_layered_vmem_cuda", "ldpc_k3_decode", tab,
+                        tables, v, iters, torch.bfloat16)
+    ldpc_layered_vmem_cuda.launches += 1
+    return out
+
+
+def ldpc_layered_hbm_cuda(tab: QCTables, tables: torch.Tensor,
+                          v: torch.Tensor, iters: int):
+    """K4: `iters` sweeps of K4's layer body from (N, B) f32 LLRs, f32
+    c2v."""
+    out = _fixed_launch("ldpc_layered_hbm_cuda", "ldpc_k4_decode", tab,
+                        tables, v, iters, torch.float32)
+    ldpc_layered_hbm_cuda.launches += 1
+    return out
+
+
+for _fn in (ldpc_layered_cuda, ldpc_layered_adaptive_cuda,
+            ldpc_layered_vmem_cuda, ldpc_layered_hbm_cuda):
+    _fn.launches = 0
+
+
+def _min_it_on(min_it, dev) -> torch.Tensor:
+    if isinstance(min_it, torch.Tensor):
+        return min_it.to(device=dev, dtype=torch.int32).reshape(1)
+    return torch.full((1,), int(min_it), dtype=torch.int32, device=dev)
 
 
 # --------------------------------------------------------------------------
-# Front door
+# Front doors
 # --------------------------------------------------------------------------
 
 class AdaptiveDecoderNB:
     """fn(llrs_t (N, B), min_it=0) -> (bits (N, B) uint8, iters () int32).
 
-    The counterpart of `make_adaptive_decoder_nb_fused_io`: LLRs round to
-    bf16 on entry, as the TPU kernel stages them.  A CUDA tensor goes
-    through the CUDA kernel, a CPU tensor through the plain version.  Any
-    B >= 1 (`batch`, when given, is checked).  `min_it` (int or
-    one-element int tensor) is the traced first-check floor."""
+    The counterpart of `make_adaptive_decoder_nb_fused_io` (K1: LLRs round
+    to bf16 on entry, as the TPU kernel stages them) or, with f32_in, of
+    `make_adaptive_decoder_nb_fused` (K2: LLRs enter as f32 totals).  A
+    CUDA tensor goes through the CUDA kernel, a CPU tensor through the
+    plain version.  Any B >= 1 (`batch`, when given, is checked).
+    `min_it` (int or one-element int tensor) is the traced first-check
+    floor."""
 
     def __init__(self, frame: FECFrame, rate: CodeRate, max_iters: int = 24,
                  check_every: int = 2, batch: int | None = None,
-                 min_iters: int = 0, layer_order=None):
+                 min_iters: int = 0, layer_order=None, f32_in: bool = False):
         self.tab = qc_tables(frame, rate)
         self.order = _layer_order(self.tab.q, layer_order)
         self.max_iters = max_iters
         self.check_every = check_every
         self.batch = batch
         self.min_iters = min_iters
+        self.in_dtype = torch.float32 if f32_in else torch.bfloat16
         self._tables = DeviceConst(pack_tables(self.tab, self.order))
 
     def _input(self, llrs_t: torch.Tensor) -> torch.Tensor:
@@ -258,7 +434,7 @@ class AdaptiveDecoderNB:
             raise ValueError(f"expected ({self.tab.n}, "
                              f"{self.batch or 'B'}) LLRs, got "
                              f"{tuple(llrs_t.shape)}")
-        return llrs_t.to(torch.bfloat16)
+        return llrs_t.to(self.in_dtype)
 
     def __call__(self, llrs_t: torch.Tensor, min_it=0):
         if llrs_t.device.type == "cpu":
@@ -268,14 +444,11 @@ class AdaptiveDecoderNB:
     def kernel(self, llrs_t: torch.Tensor, min_it=0):
         """The CUDA kernel (CUDA tensors only)."""
         v = self._input(llrs_t)
-        dev = v.device
-        if isinstance(min_it, torch.Tensor):
-            mi = min_it.to(device=dev, dtype=torch.int32).reshape(1)
-        else:
-            mi = torch.full((1,), int(min_it), dtype=torch.int32, device=dev)
-        return ldpc_layered_cuda(self.tab, self._tables.on(dev), v, mi,
-                                 self.max_iters, self.check_every,
-                                 self.min_iters)
+        launch = (ldpc_layered_cuda if self.in_dtype == torch.bfloat16
+                  else ldpc_layered_adaptive_cuda)
+        return launch(self.tab, self._tables.on(v.device), v,
+                      _min_it_on(min_it, v.device), self.max_iters,
+                      self.check_every, self.min_iters)
 
     def plain(self, llrs_t: torch.Tensor, min_it=0):
         """The plain PyTorch version on any device (the kernel's
@@ -292,10 +465,117 @@ def make_adaptive_decoder_nb_fused_io(frame: FECFrame, rate: CodeRate,
                                       dtype=torch.bfloat16,
                                       min_iters: int = 0,
                                       layer_order=None) -> AdaptiveDecoderNB:
-    """The port of the JAX front door of the same name.  Only
-    dtype=bf16 exists: the kernel stages LLRs and stores c2v in bf16."""
+    """K1's front door.  Only dtype=bf16 exists: the kernel stages LLRs
+    and stores c2v in bf16."""
     if dtype != torch.bfloat16:
         raise ValueError("the layered decoder runs on bf16 LLRs")
     return AdaptiveDecoderNB(frame, rate, max_iters=max_iters,
                              check_every=check_every, batch=batch,
                              min_iters=min_iters, layer_order=layer_order)
+
+
+def make_adaptive_decoder_nb_fused(frame: FECFrame, rate: CodeRate,
+                                   max_iters: int = 24, check_every: int = 2,
+                                   batch: int | None = None,
+                                   min_iters: int = 0,
+                                   layer_order=None) -> AdaptiveDecoderNB:
+    """K2's front door: f32 totals in (`llrs_nb_to_qc_jnp(llrs.astype(
+    f32))`, no bf16 rounding of the input), bf16 c2v, K1's exit.  Not
+    ported: the `dtype` override (no caller sets it) and the TPU kernel's
+    rolling=True variant (Mosaic never compiled it)."""
+    return AdaptiveDecoderNB(frame, rate, max_iters=max_iters,
+                             check_every=check_every, batch=batch,
+                             min_iters=min_iters, layer_order=layer_order,
+                             f32_in=True)
+
+
+_VMEM_BUDGET = 96 * 1024 * 1024
+
+
+def vmem_fit_bytes(frame: FECFrame, rate: CodeRate, batch: int,
+                   c2v_bytes: int = 2) -> int:
+    """VMEM bytes the TPU's fully-resident kernel K3 needs for this
+    code/batch (the JAX package's rule, kept byte for byte: it selects K3's
+    or K4's numerics in `make_core`; on the H100 both kernels stream c2v
+    from device memory)."""
+    tab = qc_tables(frame, rate)
+    tile = 360 * batch
+    e = tab.degmax + 2
+    return (tile * 4 * (tab.n_groups + 1)      # totals (info)
+            + tile * 4 * tab.q                 # totals (parity)
+            + tile * c2v_bytes * tab.q * e     # resident c2v
+            + tile * 4 * e                     # msgs scratch
+            + tile * 4 * 4)                    # slack (iota/masks/regs)
+
+
+@dataclass(frozen=True)
+class LayeredCore:
+    """The fixed-iteration core `make_core` selects: variant "vmem" (K3)
+    or "hbm" (K4) and its sweep count."""
+    variant: str
+    iters: int
+
+    @property
+    def c2v_dtype(self) -> torch.dtype:
+        """bf16 messages for K3, f32 for K4."""
+        return torch.bfloat16 if self.variant == "vmem" else torch.float32
+
+
+def make_core(frame: FECFrame, rate: CodeRate, iters: int, batch: int,
+              variant: str = "auto") -> LayeredCore:
+    """The JAX `make_core` choice with its default dtypes: K3 ("vmem",
+    bf16 c2v) when `vmem_fit_bytes` is within 96 MB, K4 ("hbm", f32 c2v)
+    otherwise.  Not ported: the `dtype` override (no caller uses it) and
+    the TPU's "vmem16" variant (bf16 scan; Mosaic rejected it)."""
+    if variant == "auto":
+        fits = vmem_fit_bytes(frame, rate, batch) <= _VMEM_BUDGET
+        variant = "vmem" if fits else "hbm"
+    if variant not in ("vmem", "hbm"):
+        raise ValueError(f"unknown layered-decoder variant {variant!r}")
+    return LayeredCore(variant, iters)
+
+
+class FixedDecoderNB:
+    """fn(llrs_t (N, B)) -> bits (N, B) uint8: `iters` layered sweeps in
+    natural order from f32 totals (K3 or K4, by `core.variant`).  A CUDA
+    tensor goes through the CUDA kernel, a CPU tensor through the plain
+    version."""
+
+    def __init__(self, frame: FECFrame, rate: CodeRate, core: LayeredCore,
+                 batch: int):
+        self.tab = qc_tables(frame, rate)
+        self.core = core
+        self.batch = batch
+        self._tables = DeviceConst(pack_tables(self.tab, range(self.tab.q)))
+
+    def _input(self, llrs_t: torch.Tensor) -> torch.Tensor:
+        if llrs_t.shape != (self.tab.n, self.batch):
+            raise ValueError(f"expected ({self.tab.n}, {self.batch}) LLRs, "
+                             f"got {tuple(llrs_t.shape)}")
+        return llrs_t.float()
+
+    def __call__(self, llrs_t: torch.Tensor) -> torch.Tensor:
+        if llrs_t.device.type == "cpu":
+            return self.plain(llrs_t)
+        return self.kernel(llrs_t)
+
+    def kernel(self, llrs_t: torch.Tensor) -> torch.Tensor:
+        """The CUDA kernel (CUDA tensors only)."""
+        v = self._input(llrs_t)
+        launch = (ldpc_layered_vmem_cuda if self.core.variant == "vmem"
+                  else ldpc_layered_hbm_cuda)
+        return launch(self.tab, self._tables.on(v.device), v,
+                      self.core.iters)
+
+    def plain(self, llrs_t: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch version on any device."""
+        return decode_fixed_plain(self.tab, self._input(llrs_t),
+                                  self.core.iters, self.core.variant)
+
+
+def make_decoder_nb(frame: FECFrame, rate: CodeRate, iters: int, batch: int,
+                    variant: str = "auto") -> FixedDecoderNB:
+    """The layered decoder over (N, B) LLRs: `make_core`'s choice of K3 or
+    K4 behind the (N, B) layout."""
+    return FixedDecoderNB(frame, rate, make_core(frame, rate, iters, batch,
+                                                 variant=variant), batch)

@@ -1,27 +1,30 @@
-"""Fused receive path: GI-stripped OFDM symbols -> codeword LLRs in
-(n_ldpc, B, F) layout.  Port of the main-path route of
-`sdr_receiver_dvb_t2_tpu/rx/fusedpath.py`:
-`MultiFramePath(p, plp, nb, F, llr_dtype=bf16)._fn_syms` for SISO and a
-single PLP.
+"""Fused receive path: frame samples -> codeword LLRs in (n_ldpc, B)
+layout.  Port of `sdr_receiver_dvb_t2_tpu/rx/fusedpath.py`:
 
-  - FFT of the class-ordered symbols to carrier-major (fft, n_sym, F)
-    planes (cuFFT on the card, in f32, then cast to the demod dtype);
-  - per symbol class (P2 parity / data l mod dy / FC): pilot estimates,
-    the 3-tap [1,2,1]/4 smoother, linear interpolation evaluated only at
-    the composed data rows, one-tap equalizer (`_eq_class_comp`, with the
-    fftshift folded into the row tables);
-  - the paired (total, 2F) class-flat cell layout;
-  - the LLR tail: one composed PLP cell gather (TI and cell/frequency
-    deinterleave), the rotated-constellation Q-delay and derotation,
-    separable max-log LLRs per axis, the plane-major bit-deinterleave
-    gather, and the mean min-distance EVM.
+  - `FusedFrameDemod` (one frame, SISO or MISO): the class tables, and its
+    frame entry (`__call__`, JAX `_fn`): f32 FFT, fftshift, the active
+    carriers, per-class strided symbol slices, pilot estimates, the SISO
+    one-tap or the MISO Alamouti equalizer, the flat (total, 2) class
+    layout that `layout` indexes;
+  - `FusedPLPPath` (one PLP of one frame, JAX `_fn`): the composed cell
+    gather (TI, type-2 sub-slices, cell and frequency deinterleave), the
+    rotated Q-delay, masked-min max-log LLRs over the level table, the
+    bit-deinterleave row gather to (n_ldpc, nb);
+  - `MultiFramePath` (F frames, the frame axis minor in every array):
+    the class-ordered `syms` entry (the comp-first SISO equalizer with the
+    fftshift folded into the row tables), the `planes` and `__call__`
+    entries on (F, len_frame*symbol_size) bodies, the paired (total, 2F)
+    cell layout, one LLR tail per PLP, the L1 cells and the cell-weighted
+    EVM.
 
-The table builds are the port's copies of `FusedFrameDemod.__init__` and
-`FusedPLPPath.__init__` (their module imports jax); `_interp_stencil` is
-copied from `rx/jaxdemod.py` for the same reason.
+The FFT is `torch.fft` (cuFFT on the card) in f32, cast to the demod dtype.
+The table builds are the port's copies of `FusedFrameDemod.__init__`,
+`_resolve_miso_partners` and `FusedPLPPath.__init__` (their module imports
+jax); `_interp_stencil` is copied from `rx/jaxdemod.py` for the same reason.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -54,12 +57,14 @@ def _interp_stencil(pilot_pos: np.ndarray, k_total: int):
 class _Class:
     """One symbol class: symbols with identical pilot/data tables."""
 
-    def __init__(self, sym_cols, pilot_rows, inv_ref, stencil, comp_rows):
+    def __init__(self, sym_cols, pilot_rows, inv_ref, stencil, comp_rows,
+                 miso=None):
         self.sym_cols = sym_cols        # (nc,) symbol indices
         self.pilot_rows = pilot_rows    # (np_c,)
         self.inv_ref = inv_ref          # (np_c, nc) float32, 1/ref
         self.stencil = stencil          # (il, ir, w): row indices + weight
         self.comp_rows = comp_rows      # (n_data_c,) data rows, sorted
+        self.miso = miso                # dict, see FusedFrameDemod
         il, ir, w = stencil
         wf = np.asarray(w).reshape(-1)
         # the interpolation stencil remapped to the composed data rows
@@ -67,20 +72,32 @@ class _Class:
                              wf[comp_rows].reshape(-1, 1))
         self.pilot_rows_wrapped = None
         self.comp_rows_wrapped = None
+        # classes are arithmetic progressions of symbol indices
+        self.start = int(sym_cols[0])
+        self.step = int(sym_cols[1] - sym_cols[0]) if len(sym_cols) > 1 else 1
         self.count = len(sym_cols)
+        if not np.array_equal(np.asarray(sym_cols),
+                              self.start + self.step * np.arange(self.count)):
+            raise ValueError("a symbol class is not an arithmetic progression")
 
 
 class FusedFrameDemod:
-    """Class tables of one mode (SISO): `classes`, the host `layout` map
-    (frame cell index -> flat class-output position), `sym_order` (the
-    symbol emission order that makes each class contiguous) and the
-    fftshift-wrapped row tables."""
+    """Class tables of one mode: `classes`, the host `layout` map (frame
+    cell index -> flat class-output position), `sym_order` (the symbol
+    emission order that makes each class contiguous), the fftshift-wrapped
+    row tables and, for MISO, each class's channel sources.
+
+    `demod(body2)`: (len_frame*symbol_size, 2) f32 body -> (total, 2) f32
+    equalized cells in the flat class layout (JAX `_fn`)."""
 
     def __init__(self, p: T2Params):
-        if p.miso:
-            raise NotImplementedError("the port's fused path is SISO only")
         self.p = p
-        tabs = npdemod.pilot_tables(p)
+        if p.miso:
+            tabs = npdemod.pilot_tables(dataclasses.replace(p, miso_group=0))
+            tabs2 = npdemod.pilot_tables(dataclasses.replace(p, miso_group=1))
+        else:
+            tabs = npdemod.pilot_tables(p)
+            tabs2 = None
         n_plain = p.n_data - (1 if p.has_fc else 0)
         dy = tables.SP_PATTERN[p.pilot_pattern][1]
         class_rows: list[list[int]] = []
@@ -110,6 +127,21 @@ class FusedFrameDemod:
                 [1.0 / np.real(tabs[r]["pilot_ref"]).astype(np.float32)
                  for r in rows], axis=1)
             il, ir, w = _interp_stencil(pilot_rows, p.k_total)
+            miso = None
+            if p.miso:
+                # the TX2 pilot-inversion subset depends on the carrier map
+                # alone, identical for every symbol of a class
+                inverted = np.real(tabs2[rows[0]]["pilot_ref"]
+                                   * np.conj(t0["pilot_ref"])) < 0
+                for r in rows[1:]:
+                    inv_r = np.real(tabs2[r]["pilot_ref"]
+                                    * np.conj(tabs[r]["pilot_ref"])) < 0
+                    if not np.array_equal(inv_r, inverted):
+                        raise ValueError("MISO inversions differ in a class")
+                if n_data_c % 2:
+                    raise ValueError("Alamouti pairs need even cells")
+                miso = dict(inverted=inverted,
+                            data_rows=t0["data_pos"].astype(np.int32))
             # data rows in sorted carrier order; the frequency deinterleave
             # folds into `layout` and rides the downstream cell gather
             rxg = t0["rx_gather"]
@@ -120,7 +152,7 @@ class FusedFrameDemod:
             self.classes.append(_Class(
                 np.array(rows, np.int32), pilot_rows.astype(np.int32),
                 inv_ref, (il, ir, w.reshape(-1, 1)),
-                t0["data_pos"].astype(np.int32)))
+                t0["data_pos"].astype(np.int32), miso=miso))
             flat_off += n_data_c * nc
         self.layout = layout
         self.total_cells = total
@@ -133,15 +165,105 @@ class FusedFrameDemod:
                                     ).astype(np.int32)
             c.comp_rows_wrapped = ((s0 + c.comp_rows) % p.fft_size
                                    ).astype(np.int32)
+        if p.miso:
+            self._resolve_miso_partners()
+        self._consts: dict[int, list] = {}
+
+    def _resolve_miso_partners(self):
+        """For each class and each pilot subset (sum = non-inverted, dif =
+        inverted), pick the channel source.  On data symbols the inversion
+        parity equals the row parity, so one subset per class is just the
+        few continual pilots; that subset's channel comes from the class of
+        adjacent symbols, where it is dense, lane-aligned to the nearest
+        partner symbol.  P2/FC classes stay self-contained."""
+        p = self.p
+        dx, dy = tables.SP_PATTERN[p.pilot_pattern]
+
+        def density_ok(pos):
+            return len(pos) >= 8 and int(np.diff(np.sort(pos)).max()) \
+                <= 4 * dx * dy
+
+        for ci, c in enumerate(self.classes):
+            mi = c.miso
+            inv = mi.pop("inverted")
+            mi["self_idx"] = ci
+            for side, mask in (("sum", ~inv), ("dif", inv)):
+                sel = np.nonzero(mask)[0].astype(np.int32)
+                pos = c.pilot_rows[mask]
+                src_idx, lane_map, nc_src = None, None, None
+                if not density_ok(pos):
+                    best = None
+                    for pj, pc in enumerate(self.classes):
+                        if pj == ci or pc.miso is None:
+                            continue
+                        pinv = pc.miso.get("inverted")
+                        if pinv is None:   # already resolved
+                            pinv = pc.miso["_inv_cache"]
+                        pmask = ~pinv if side == "sum" else pinv
+                        ppos = pc.pilot_rows[pmask]
+                        if not density_ok(ppos):
+                            continue
+                        dist = abs(int(pc.sym_cols[0]) - int(c.sym_cols[0]))
+                        if best is None or dist < best[0]:
+                            best = (dist, pj, pmask, ppos)
+                    if best is not None:
+                        _, pj, pmask, ppos = best
+                        pc = self.classes[pj]
+                        src_idx = pj
+                        sel = np.nonzero(pmask)[0].astype(np.int32)
+                        pos = ppos
+                        lane_map = np.array(
+                            [int(np.argmin(np.abs(
+                                np.asarray(pc.sym_cols) - r)))
+                             for r in c.sym_cols], np.int32)
+                        nc_src = int(pc.count)
+                il, ir, w = _interp_stencil(np.sort(pos), p.k_total)
+                order = np.argsort(pos)
+                mi[side] = dict(src_idx=src_idx, sel=sel[order],
+                                stencil=(il, ir, w.reshape(-1, 1)),
+                                lane_map=lane_map, nc_src=nc_src)
+            mi["_inv_cache"] = inv
+
+    def consts(self, rep: int) -> list:
+        """The classes' device tables for `rep` frames folded into the lane
+        axis."""
+        if rep not in self._consts:
+            self._consts[rep] = [_ClassConsts(c, rep) for c in self.classes]
+        return self._consts[rep]
+
+    def __call__(self, body2: torch.Tensor) -> torch.Tensor:
+        p = self.p
+        body = torch.complex(body2[:, 0].float(), body2[:, 1].float())
+        sym = body.reshape(p.len_frame, p.symbol_size)[:, p.guard_size:]
+        spec = torch.fft.fftshift(torch.fft.fft(sym, dim=1), dim=1)
+        car = spec[:, p.left_nulls:p.left_nulls + p.k_total]
+        xr, xi = car.real.T, car.imag.T                  # (k_total, n_sym)
+        ccs = self.consts(1)
+        dev = body2.device
+        xs = [(xr[:, cc.cols.on(dev)], xi[:, cc.cols.on(dev)]) for cc in ccs]
+        ests = None
+        if p.miso:
+            ests = [class_pilot_est(cc, a, b) for cc, (a, b) in zip(ccs, xs)]
+        outs_r, outs_i = [], []
+        for cc, (a, b) in zip(ccs, xs):
+            er, ei = _eq_class_planar(cc, a, b, ests)
+            outs_r.append(er.reshape(-1))
+            outs_i.append(ei.reshape(-1))
+        return torch.stack([torch.cat(outs_r), torch.cat(outs_i)], -1)
 
 
 class FusedPLPPath:
-    """PLP tables of one (mode, PLP, num_blocks): the composed cell gather
-    `comp` (plain PLP cell -> class-flat position), the bit deinterleave
-    `bit_inv` and the constellation rotation `rot`."""
+    """One PLP of one frame: the composed cell gather `comp` (plain PLP
+    cell -> class-flat position, with type-2 sub-slices), the bit
+    deinterleave `bit_inv` and the constellation rotation `rot`.
+
+    `path(flat2, inv_nvar)`: (total, 2) f32 class-layout cells ->
+    (n_ldpc, nb) f32 LLRs (JAX `_fn`)."""
 
     def __init__(self, p: T2Params, plp: PLPParams, num_blocks: int,
-                 demod: FusedFrameDemod):
+                 demod: FusedFrameDemod, plp_start_cell: int = 0,
+                 l1_cells: int | None = None, sub_slices: int = 1,
+                 slice_interval: int = 0):
         self.plp = plp
         self.num_blocks = num_blocks
         cpf = plp.cells_per_fec_block
@@ -154,10 +276,20 @@ class FusedPLPPath:
             perms.append(_ti_inverse_perm(cpf, nb) + off)
             off += nb * cpf
         ti = np.concatenate(perms).astype(np.int64)
-        pre, _ = l1mod.build_l1(p, [plp])
-        l1_cells = l1mod.L1_PRE_CELLS + pre.l1_post_size
-        # single PLP, one slice: PLP cell j is frame cell l1_cells + j
-        self.comp = demod.layout[l1_cells + ti].astype(np.int32)
+        if l1_cells is None:
+            pre, _ = l1mod.build_l1(p, [plp])
+            l1_cells = l1mod.L1_PRE_CELLS + pre.l1_post_size
+        # plain-cell position of PLP-stream cell j: type-2 PLPs are cut
+        # into sub_slices round-robin slices `slice_interval` cells apart
+        n_cells = num_blocks * cpf
+        j = np.arange(n_cells, dtype=np.int64)
+        if sub_slices > 1:
+            ln = n_cells // sub_slices
+            substream = (plp_start_cell + (j // ln) * slice_interval
+                         + (j % ln))
+        else:
+            substream = plp_start_cell + j
+        self.comp = demod.layout[l1_cells + substream[ti]].astype(np.int32)
         fec = plp.fec
         addr = interleavers.bit_interleaver_perm(plp.constellation,
                                                 plp.fec_frame, plp.rate)
@@ -169,6 +301,48 @@ class FusedPLPPath:
         self.bit_inv = g_inv
         self.rot = np.exp(-1j * tables.ROTATION_ANGLE[plp.constellation]) \
             if plp.rotated else 1.0
+        m = plp.bits_per_cell
+        half = m // 2
+        levels = (tables._gray_levels(m)
+                  * tables.NORM_FACTOR[plp.constellation]).astype(np.float32)
+        words = np.arange(len(levels))
+        # axis_masks[b, level]: bit b of the level's Gray word is 1
+        self._levels = DeviceConst(levels)
+        self._masks = DeviceConst(np.stack(
+            [(words >> (half - 1 - b)) & 1 for b in range(half)]
+        ).astype(bool))
+        self._comp = DeviceConst(self.comp.astype(np.int64))
+        self._bit_inv = DeviceConst(self.bit_inv.astype(np.int64))
+
+    def _axis_llrs(self, xax, inv_nvar):
+        dev = xax.device
+        levels, masks = self._levels.on(dev), self._masks.on(dev)
+        d2 = (xax[:, None] - levels[None, :]) ** 2
+        inf = torch.tensor(1e30, dtype=torch.float32, device=dev)
+        out = []
+        for mb in masks:
+            d0 = torch.where(mb[None, :], inf, d2).min(1).values
+            d1 = torch.where(mb[None, :], d2, inf).min(1).values
+            out.append((d1 - d0) * inv_nvar)
+        return torch.stack(out, 1)
+
+    def __call__(self, flat2: torch.Tensor, inv_nvar) -> torch.Tensor:
+        plp = self.plp
+        nb, cpf = self.num_blocks, plp.cells_per_fec_block
+        dev = flat2.device
+        inv = torch.as_tensor(inv_nvar, dtype=torch.float32, device=dev)
+        cells = flat2[self._comp.on(dev)]                # (nb*cpf, 2)
+        re = cells[:, 0].reshape(nb, cpf)
+        im = cells[:, 1].reshape(nb, cpf)
+        if plp.rotated:
+            rot_re = float(np.float32(np.real(self.rot)))
+            rot_im = float(np.float32(np.imag(self.rot)))
+            im = torch.roll(im, -1, -1)
+            re, im = (re * rot_re - im * rot_im, re * rot_im + im * rot_re)
+        li = self._axis_llrs(re.reshape(-1), inv)        # (n, half)
+        lq = self._axis_llrs(im.reshape(-1), inv)
+        v = torch.stack([li, lq], 2).reshape(nb, cpf * plp.bits_per_cell)
+        return v.T[self._bit_inv.on(dev)]                # (n_ldpc, nb)
 
 
 def _smooth_pilot_est(epr, epi):
@@ -181,25 +355,56 @@ def _smooth_pilot_est(epr, epi):
 
 
 class _ClassConsts:
-    """A class's tables on the device side of the equalizer."""
+    """A class's tables on the device side of the equalizer, for `rep`
+    frames folded into the lane axis."""
 
     def __init__(self, c: _Class, rep: int):
+        def dc(a, dtype=np.int64):
+            return DeviceConst(np.asarray(a, dtype))
+        self.c, self.rep = c, rep
+        self.cols = dc(c.sym_cols)
+        self.iref = dc(np.repeat(c.inv_ref, rep, axis=1), np.float32)
+        self.prow = dc(c.pilot_rows)
+        self.drow = dc(c.comp_rows)
+        self.prow_w = dc(c.pilot_rows_wrapped)
+        self.drow_w = dc(c.comp_rows_wrapped)
         il, ir, w = c.comp_stencil
-        self.prow = DeviceConst(c.pilot_rows_wrapped.astype(np.int64))
-        self.drow = DeviceConst(c.comp_rows_wrapped.astype(np.int64))
-        self.iref = DeviceConst(np.repeat(c.inv_ref, rep, axis=1))
-        self.il = DeviceConst(il.astype(np.int64))
-        self.ir = DeviceConst(ir.astype(np.int64))
-        self.w = DeviceConst(np.asarray(w, np.float32))
+        self.il, self.ir, self.w = dc(il), dc(ir), dc(w, np.float32)
+        self.miso = None
+        if c.miso is not None:
+            mi = c.miso
+            self.miso = dict(self_idx=mi["self_idx"],
+                             data_rows=dc(mi["data_rows"]))
+            for side in ("sum", "dif"):
+                s = mi[side]
+                sil, sir, sw = s["stencil"]
+                self.miso[side] = dict(
+                    src_idx=s["src_idx"], nc_src=s["nc_src"], sel=dc(s["sel"]),
+                    lane_map=(None if s["lane_map"] is None
+                              else dc(s["lane_map"])),
+                    il=dc(sil), ir=dc(sir), w=dc(sw, np.float32))
 
 
-def _eq_class_comp(cc: _ClassConsts, xcr, xci):
-    """Comp-first one-tap SISO equalizer of one class on the raw (fft,
-    lanes) carrier-major FFT output: the channel is interpolated only at
-    the composed data rows, and the output is in composed order."""
+def class_pilot_est(cc: _ClassConsts, xcr, xci):
+    """Pilot channel estimates of one class: (epr, epi) of
+    (np_c, nc*rep), on carrier-ordered rows."""
+    dev = xcr.device
+    iref = cc.iref.on(dev).to(xcr.dtype)
+    prow = cc.prow.on(dev)
+    return xcr[prow] * iref, xci[prow] * iref
+
+
+def _eq_class_comp(cc: _ClassConsts, xcr, xci, wrapped: bool):
+    """SISO one-tap equalizer of one class: pilot estimates, the 3-tap
+    smoother, linear interpolation evaluated only at the composed data
+    rows, output in composed (sorted data carrier) order.  With wrapped,
+    xcr/xci are the raw (fft, lanes) FFT output and the row tables carry
+    the fftshift; otherwise they are (k_total, lanes) carrier rows.  The
+    same arithmetic, element for element, as JAX `_eq_class_planar`'s SISO
+    branch and `_eq_class_comp`."""
     dev, dt = xcr.device, xcr.dtype
     iref = cc.iref.on(dev).to(dt)
-    prow = cc.prow.on(dev)
+    prow = (cc.prow_w if wrapped else cc.prow).on(dev)
     epr = xcr[prow] * iref
     epi = xci[prow] * iref
     epr, epi = _smooth_pilot_est(epr, epi)
@@ -207,13 +412,90 @@ def _eq_class_comp(cc: _ClassConsts, xcr, xci):
     w = cc.w.on(dev).to(dt)
     chr_ = epr[il] * (1.0 - w) + epr[ir] * w
     chi_ = epi[il] * (1.0 - w) + epi[ir] * w
-    drow = cc.drow.on(dev)
+    drow = (cc.drow_w if wrapped else cc.drow).on(dev)
     xdr = xcr[drow]
     xdi = xci[drow]
     inv = 1.0 / (chr_ * chr_ + chi_ * chi_)
     eqr = (xdr * chr_ + xdi * chi_) * inv
     eqi = (xdi * chr_ - xdr * chi_) * inv
     return eqr, eqi
+
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _eq_class_planar(cc: _ClassConsts, xcr, xci, ests=None):
+    """Equalize one symbol class on (k_total, nc*rep) carrier rows ->
+    (n_data_c, nc*rep) cells in sorted data-carrier order.
+
+    SISO: `_eq_class_comp`.  MISO: the received pilots carry ref*(h1+h2) on
+    non-inverted positions and ref*(h1-h2) on the TX2-inverted subset; each
+    subset's channel comes from its source class (`ests`: every class's
+    `class_pilot_est`), lane-aligned to the nearest partner symbol, and
+    interpolated; adjacent data carriers form Alamouti pairs solved as a
+    2x2 system (zero-forcing)."""
+    mi = cc.miso
+    if mi is None:
+        return _eq_class_comp(cc, xcr, xci, wrapped=False)
+    dev, dt = xcr.device, xcr.dtype
+    rep = cc.rep
+    own = ests[mi["self_idx"]] if ests is not None \
+        else class_pilot_est(cc, xcr, xci)
+
+    def subset_channel(sub):
+        sr_, si_ = own if sub["src_idx"] is None else ests[sub["src_idx"]]
+        sel = sub["sel"].on(dev)
+        sr_, si_ = sr_[sel], si_[sel]
+        if sub["lane_map"] is not None:
+            # align partner symbols to this class's lanes (nearest row)
+            lm = sub["lane_map"].on(dev)
+            nc_src = sub["nc_src"]
+            sr_ = sr_.reshape(sr_.shape[0], nc_src, rep)[:, lm, :].reshape(
+                sr_.shape[0], -1)
+            si_ = si_.reshape(si_.shape[0], nc_src, rep)[:, lm, :].reshape(
+                si_.shape[0], -1)
+        il, ir = sub["il"].on(dev), sub["ir"].on(dev)
+        w = sub["w"].on(dev).to(dt)
+        return (sr_[il] * (1.0 - w) + sr_[ir] * w,
+                si_[il] * (1.0 - w) + si_[ir] * w)
+
+    hs_r, hs_i = subset_channel(mi["sum"])
+    hd_r, hd_i = subset_channel(mi["dif"])
+    h1r, h1i = 0.5 * (hs_r + hd_r), 0.5 * (hs_i + hd_i)
+    h2r, h2i = 0.5 * (hs_r - hd_r), 0.5 * (hs_i - hd_i)
+    dp = mi["data_rows"].on(dev)
+    r_r, r_i = xcr[dp], xci[dp]             # (n_data_c, lanes)
+    h1r_d, h1i_d = h1r[dp], h1i[dp]
+    h2r_d, h2i_d = h2r[dp], h2i[dp]
+    # Alamouti pairs on adjacent data carriers:
+    #   r0 = h1_0 e0 - h2_0 e1*,   r1 = h1_1 e1 + h2_1 e0*
+    r0r, r0i = r_r[0::2], r_i[0::2]
+    r1r, r1i = r_r[1::2], r_i[1::2]
+    a_r, a_i = h1r_d[0::2], h1i_d[0::2]     # h1_0
+    b_r, b_i = h2r_d[0::2], h2i_d[0::2]     # h2_0
+    c_r, c_i = h1r_d[1::2], h1i_d[1::2]     # h1_1
+    d_r, d_i = h2r_d[1::2], h2i_d[1::2]     # h2_1
+    # det = h1_0 * conj(h1_1) + h2_0 * conj(h2_1)
+    t0r, t0i = _cmul(a_r, a_i, c_r, -c_i)
+    t1r, t1i = _cmul(b_r, b_i, d_r, -d_i)
+    det_r, det_i = t0r + t1r, t0i + t1i
+    inv_d2 = 1.0 / torch.clamp(det_r * det_r + det_i * det_i, min=1e-24)
+    # e0 = (conj(h1_1) * r0 + h2_0 * conj(r1)) / det
+    n0r, n0i = _cmul(c_r, -c_i, r0r, r0i)
+    m0r, m0i = _cmul(b_r, b_i, r1r, -r1i)
+    n0r, n0i = n0r + m0r, n0i + m0i
+    e0r, e0i = _cmul(n0r, n0i, det_r * inv_d2, -det_i * inv_d2)
+    # e1 = conj((-conj(h2_1) * r0 + h1_0 * conj(r1)) / det)
+    n1r, n1i = _cmul(-d_r, d_i, r0r, r0i)
+    m1r, m1i = _cmul(a_r, a_i, r1r, -r1i)
+    n1r, n1i = n1r + m1r, n1i + m1i
+    e1r, e1i = _cmul(n1r, n1i, det_r * inv_d2, -det_i * inv_d2)
+    e1i = -e1i
+    # sorted carrier order; the frequency deinterleave is in demod.layout
+    out_r = torch.stack([e0r, e1r], 1).reshape(r_r.shape)
+    out_i = torch.stack([e0i, e1i], 1).reshape(r_i.shape)
+    return out_r, out_i
 
 
 def fft_carrier_major(sym_r, sym_i, dtype):
@@ -224,49 +506,27 @@ def fft_carrier_major(sym_r, sym_i, dtype):
     return spec.real.to(dtype), spec.imag.to(dtype)
 
 
-class MultiFramePath:
-    """F-frame batched demod + single-PLP LLR path with the frame axis
-    minor in every array.
+class _Tail:
+    """One PLP's LLR tail (JAX `MultiFramePath._make_tail`): class-flat
+    paired rows (total, 2F) -> (n_ldpc, nb, F) LLRs + the per-frame mean
+    min distance (EVM)."""
 
-    `syms(sym_r, sym_i, inv_nvar)` takes GI-stripped (F, len_frame, fft)
-    symbol planes in class order (`demod.sym_order`) and returns
-    (n_ldpc, nb, F) LLRs in `llr_dtype`, plus the (F,) EVM when
-    `emit_evm`."""
-
-    def __init__(self, p: T2Params, plp: PLPParams, num_blocks: int,
-                 n_frames: int = 1, llr_dtype=torch.float32,
-                 emit_evm: bool = False):
-        self.p = p
-        self.plp = plp
-        self.num_blocks = num_blocks
-        self.n_frames = n_frames
-        # the demod computes and stores in the LLR dtype (bf16 on the
-        # main path)
-        self.llr_dtype = llr_dtype
-        self.emit_evm = emit_evm
-        self.demod = get_fused_demod(p)
-        self.path = get_fused_plp_path(p, plp, num_blocks)
-        self._classes = [_ClassConsts(c, n_frames)
-                         for c in self.demod.classes]
-        self._sym_off = np.concatenate(
-            [[0], np.cumsum([c.count for c in self.demod.classes])]
-        ).astype(int)
-        self._tail_tables()
-
-    def _tail_tables(self):
-        path, plp = self.path, self.plp
-        nb, cpf = self.num_blocks, plp.cells_per_fec_block
+    def __init__(self, path: FusedPLPPath, n_frames: int, llr_dtype):
+        plp = path.plp
+        self.plp, self.f, self.llr_dtype = plp, n_frames, llr_dtype
+        self.nb, self.cpf = path.num_blocks, plp.cells_per_fec_block
         m = plp.bits_per_cell
         half = m // 2
         # cell-major composed PLP permutation: (nb, F) stay minor
         self._comp_cm = DeviceConst(
-            path.comp.reshape(nb, cpf).T.reshape(-1).astype(np.int64))
+            path.comp.reshape(self.nb, self.cpf).T.reshape(-1).astype(
+                np.int64))
         # bit deinterleave remapped to plane-major LLR storage: v-flat
         # index cell*m + bitpos (y0=I0, y1=Q0, ...) -> plane*cpf + cell
         bi = path.bit_inv.astype(np.int64)
         cell_ix, bitpos = bi // m, bi % m
         plane = (bitpos % 2) * half + bitpos // 2
-        self._bit_inv_pm = DeviceConst(plane * cpf + cell_ix)
+        self._bit_inv_pm = DeviceConst(plane * self.cpf + cell_ix)
         self._levels = [float(v) for v in (tables._gray_levels(m)
                         * tables.NORM_FACTOR[plp.constellation])]
         words = np.arange(len(self._levels))
@@ -293,13 +553,12 @@ class MultiFramePath:
         # unconditional min distance (the EVM)
         return llrs, torch.minimum(acc0[0], acc1[0])
 
-    def _tail(self, both, inv_nvar):
-        plp = self.plp
-        nb, cpf, f = self.num_blocks, plp.cells_per_fec_block, self.n_frames
+    def __call__(self, both, inv_nvar):
+        nb, cpf, f = self.nb, self.cpf, self.f
         dev = both.device
         g = both[self._comp_cm.on(dev)].reshape(cpf, nb, 2, f)
         re, im = g[:, :, 0, :], g[:, :, 1, :]
-        if plp.rotated:
+        if self.plp.rotated:
             rot_re, rot_im = self._rot
             im = torch.roll(im, -1, 0)              # cyclic Q-delay per block
             re, im = (re * rot_re - im * rot_im, re * rot_im + im * rot_re)
@@ -307,29 +566,159 @@ class MultiFramePath:
                                 device=dev).to(self.llr_dtype)
         li, mi_ = self._axis_llrs(re, inv_t)        # (half, cpf, nb, F)
         lq, mq_ = self._axis_llrs(im, inv_t)
-        v = torch.cat([li, lq]).reshape(plp.bits_per_cell * cpf, nb, f)
+        v = torch.cat([li, lq]).reshape(self.plp.bits_per_cell * cpf, nb, f)
         out = v[self._bit_inv_pm.on(dev)]           # (n_ldpc, nb, F)
         evm = (mi_.float().mean((0, 1)) + mq_.float().mean((0, 1)))
         return out, evm
+
+
+class MultiFramePath:
+    """F-frame batched demod + PLP LLR path with the frame axis minor in
+    every array.
+
+    Entries (JAX `_fn_syms`, `_fn_planes`, `_fn`):
+      - `syms(sym_r, sym_i, inv_nvar)`: GI-stripped (F, len_frame, fft)
+        symbol planes in class order (`demod.sym_order`);
+      - `planes(body_r, body_i, inv_nvar)`: (F, len_frame*symbol_size)
+        body planes in natural symbol order;
+      - `path(bodies, inv_nvar)`: (F, len_frame*symbol_size, 2) bodies.
+    Each returns (n_ldpc, nb, F) LLRs in `llr_dtype` (a tuple of them, one
+    per PLP, with `plp_specs`), followed, when asked, by the L1 cells
+    (l1_size, F, 2) (`emit_l1`) and the cell-weighted (F,) EVM
+    (`emit_evm`).  `plp_specs` = [(plp, num_blocks, start_cell,
+    sub_slices, slice_interval), ...] decodes every PLP of the frames in
+    one call."""
+
+    def __init__(self, p: T2Params, plp: PLPParams | None = None,
+                 num_blocks: int = 0, n_frames: int = 1,
+                 llr_dtype=torch.float32, emit_l1: bool = False,
+                 emit_evm: bool = False, l1_cells: int | None = None,
+                 plp_specs=None):
+        self.p = p
+        self.n_frames = n_frames
+        # the demod computes and stores in the LLR dtype too (bf16 on the
+        # batched path); the FFT itself runs in f32
+        self.llr_dtype = llr_dtype
+        self.emit_l1 = emit_l1
+        self.emit_evm = emit_evm
+        self.demod = get_fused_demod(p)
+        self.multi = plp_specs is not None
+        if plp_specs is None:
+            plp_specs = [(plp, num_blocks, 0, 1, 0)]
+        self.specs = list(plp_specs)
+        self.plp = self.specs[0][0]
+        self.num_blocks = self.specs[0][1]
+        if l1_cells is not None:
+            self.l1_size = l1_cells
+        else:
+            pre, _ = l1mod.build_l1(p, [s[0] for s in self.specs])
+            self.l1_size = l1mod.L1_PRE_CELLS + pre.l1_post_size
+        self.paths = []
+        for (pl, nb, sc, ss, iv) in self.specs:
+            if sc == 0 and ss == 1 and l1_cells is None \
+                    and len(self.specs) == 1:
+                self.paths.append(get_fused_plp_path(p, pl, nb))
+            else:
+                self.paths.append(FusedPLPPath(
+                    p, pl, nb, self.demod, plp_start_cell=sc,
+                    l1_cells=self.l1_size, sub_slices=ss,
+                    slice_interval=iv))
+        self.path = self.paths[0]
+        self._tails = [_Tail(pa, n_frames, llr_dtype) for pa in self.paths]
+        # cell-count weights for the cross-PLP EVM average
+        wts = np.array([pa.num_blocks * pa.plp.cells_per_fec_block
+                        for pa in self.paths], np.float64)
+        self._wts = (wts / wts.sum()).tolist()
+        self._l1_rows = DeviceConst(
+            self.demod.layout[:self.l1_size].astype(np.int64))
+        self._classes = self.demod.consts(n_frames)
+        self._sym_off = np.concatenate(
+            [[0], np.cumsum([c.count for c in self.demod.classes])]
+        ).astype(int)
 
     def syms(self, sym_r, sym_i, inv_nvar):
         p, f = self.p, self.n_frames
         if sym_r.shape != (f, p.len_frame, p.fft_size):
             raise ValueError(f"expected ({f}, {p.len_frame}, {p.fft_size}) "
                              f"symbol planes, got {tuple(sym_r.shape)}")
+        return self._core(sym_r, sym_i, inv_nvar, ordered=True)
+
+    def planes(self, body_r, body_i, inv_nvar):
+        p, f = self.p, self.n_frames
+        if body_r.shape != (f, p.len_frame * p.symbol_size):
+            raise ValueError(f"expected ({f}, {p.len_frame * p.symbol_size})"
+                             f" body planes, got {tuple(body_r.shape)}")
+        sym_r = body_r.reshape(f, p.len_frame, p.symbol_size
+                               )[:, :, p.guard_size:]
+        sym_i = body_i.reshape(f, p.len_frame, p.symbol_size
+                               )[:, :, p.guard_size:]
+        return self._core(sym_r, sym_i, inv_nvar)
+
+    def __call__(self, bodies, inv_nvar):
+        return self.planes(bodies[..., 0], bodies[..., 1], inv_nvar)
+
+    def _to_carriers(self, v):
+        """Natural-order (fft, ...) spectrum -> (k_total, ...) active
+        carriers: the fftshift and carrier slice as wrapped row slices."""
+        p = self.p
+        s0 = (p.left_nulls - p.fft_size // 2) % p.fft_size
+        if s0 + p.k_total <= p.fft_size:
+            return v[s0:s0 + p.k_total]
+        return torch.cat([v[s0:], v[:s0 + p.k_total - p.fft_size]])
+
+    def _core(self, sym_r, sym_i, inv_nvar, ordered=False):
+        p, f = self.p, self.n_frames
         xkr, xki = fft_carrier_major(sym_r, sym_i, self.llr_dtype)
-        xkr = xkr.reshape(p.fft_size, -1)            # (fft, n_sym*F)
-        xki = xki.reshape(p.fft_size, -1)
-        outs = []
+        # comp-first route (ordered SISO): the row tables carry the
+        # fftshift wrap, so the raw FFT output is indexed directly
+        comp_first = ordered and not p.miso
+        if comp_first:
+            xr, xi = xkr, xki                        # (fft, n_sym, F)
+        else:
+            xr, xi = self._to_carriers(xkr), self._to_carriers(xki)
+        xs = []
         for ci, cc in enumerate(self._classes):
-            lo = int(self._sym_off[ci]) * f
-            hi = int(self._sym_off[ci + 1]) * f
-            eqr, eqi = _eq_class_comp(cc, xkr[:, lo:hi], xki[:, lo:hi])
+            c = cc.c
+            if ordered:
+                # class-ordered symbols: a contiguous column view
+                lo, hi = int(self._sym_off[ci]) * f, \
+                    int(self._sym_off[ci + 1]) * f
+                xs.append((xr.reshape(xr.shape[0], -1)[:, lo:hi],
+                           xi.reshape(xi.shape[0], -1)[:, lo:hi]))
+            else:
+                sl = slice(c.start, c.start + c.step * (c.count - 1) + 1,
+                           c.step)
+                xs.append((xr[:, sl].reshape(xr.shape[0], -1),
+                           xi[:, sl].reshape(xi.shape[0], -1)))
+        ests = None
+        if p.miso:
+            ests = [class_pilot_est(cc, a, b)
+                    for cc, (a, b) in zip(self._classes, xs)]
+        # paired class-flat layout (total, 2F): row j = [re_j | im_j]
+        outs = []
+        for cc, (a, b) in zip(self._classes, xs):
+            if comp_first:
+                eqr, eqi = _eq_class_comp(cc, a, b, wrapped=True)
+            else:
+                eqr, eqi = _eq_class_planar(cc, a, b, ests)
             outs.append(torch.cat([eqr.reshape(-1, f), eqi.reshape(-1, f)],
                                   1))
         both = torch.cat(outs)                       # (total, 2F)
-        out, evm = self._tail(both, inv_nvar)
-        return (out, evm) if self.emit_evm else out
+        outs, evm = [], 0.0
+        for w, tail in zip(self._wts, self._tails):
+            out_p, evm_p = tail(both, inv_nvar)
+            outs.append(out_p)
+            evm = evm + evm_p * w
+        out = tuple(outs) if self.multi else outs[0]
+        if not (self.emit_l1 or self.emit_evm):
+            return out
+        res = [out]
+        if self.emit_l1:
+            l1c = both[self._l1_rows.on(both.device)]
+            res.append(torch.stack([l1c[:, :f], l1c[:, f:]], -1))
+        if self.emit_evm:
+            res.append(evm)                          # (F,) cell-weighted
+        return tuple(res)
 
 
 @functools.lru_cache(maxsize=None)
