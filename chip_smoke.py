@@ -3,12 +3,13 @@
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the port's CUDA kernels from `sdr_receiver_dvb_t2_tpu_torch/csrc`
-and drives the port's two main paths at the headline mode: 32K FFT,
-GI 1/128, PP7 extended carriers, 59 data symbols, 256QAM C2/3 NORMAL FEC,
-B=128 codewords per frame.
+and drives the port's main paths at the headline mode: 32K FFT, GI 1/128,
+PP7 extended carriers, 59 data symbols, 256QAM C2/3 NORMAL FEC, B=128
+codewords per frame.
 
 Phases (each prints its lines; any failure raises and exits non-zero):
-  1. the card's name and power limit; build the kernels.
+  1. the card's name and power limit; build the kernels (one nvcc per
+     source, started together).
   2. each layered LDPC kernel against its plain PyTorch version on
      synthetic codewords, tolerance 0 on bits and sweep counts, both timed
      with CUDA events:
@@ -20,21 +21,39 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        NORMAL C3/5, B=128, natural order, each reached through
        `make_decoder_nb`'s automatic choice: 12 sweeps at sigma 0.65, and
        6 sweeps beyond the code's threshold (sigma 0.74 at C2/3, 0.82 at
-       C3/5), where some codewords must stay undecoded.
+       C3/5), where some codewords must stay undecoded;
+       K5 (fixed, bf16 LLRs staged in, bf16 c2v) at NORMAL C2/3 through
+       `make_decoder_nb_fused_io`, the same two cases;
+       K6 (FFT stage 1 fused with the twiddle) at n=32768, 60 symbols, F
+       frames against its plain version within `fft_stage1.compare`'s
+       tolerance, stage 1 by K6 plus the stage-2 einsum against
+       torch.fft.fft, and K6's time beside the same function through bf16
+       torch.matmul.
   3. the superstep: F frames modulated on the host (T2Modulator), impaired
      on the card (CFO +1.2 kHz, SCO +22 ppm, DC, IQ imbalance, int16 ADC),
      tracking state estimated by T2Receiver.refine_acquire on a 2-frame
      capture, then the superstep at clean and at 20 dB.  Gates: every
      codeword BCH-clean, per-frame hashes equal to the host expectation,
-     the TS reassembled from all frames bit-exact, K1 launched.
+     the TS reassembled from all frames bit-exact, K1 launched.  Then K5's
+     path, its front door on the superstep's own frame-0 LLRs (every
+     codeword BCH-clean, the BB bytes equal to the transmitted ones), and
+     K6's path, the FFT microbench tool (`tools/fft_microbench.run`: every
+     route's error against an f64 FFT within its bound).
   4. the receiver: `DeviceT2Receiver(device="cuda")` on a host-modulated
      capture of the headline mode: `receive()` at CFO +1.2 kHz and 20 dB
      (K2), `receive()` with adaptive=False on the clean capture (K3), the
      same at NORMAL C3/5 (K4), and the streaming batched path through
      `io.devices.StreamingReceiver` at 30 dB.  Gates: every frame decoded,
      no TS errors, the TS a bit-exact prefix of the transmitted one, the
-     route's kernel launched, at least one batched superstep, and no jax
-     module loaded.
+     route's kernel launched, at least one batched superstep.
+  5. streaming with the sample correction on the card: the capture
+     resampled to the 9.2 Msps SdrPlay rate (the drift stage; LO offset,
+     DC and IQ imbalance injected by `SimulatedDevice`) and to the 10 Msps
+     AirSpy rate (the 35/32 polyphase stage).  Gates: the chain that ran is
+     `DeviceFrontendChain` with its state on the CUDA device, every frame
+     decoded (all but at most the last at 10 Msps, whose tail the
+     polyphase halo holds back), no TS errors, the TS bit-exact.
+  6. no jax module and no module of the JAX package is loaded.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -51,6 +70,20 @@ import torch
 NUM_BLOCKS = 128
 PALLAS = "sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py"
 SOURCE = "sdr_receiver_dvb_t2_tpu_torch/csrc/ldpc_layered.cu"
+SOURCE_K6 = "sdr_receiver_dvb_t2_tpu_torch/csrc/fft_stage1.cu"
+# published peaks of one H100 SXM, for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
+# f32 operations of the layered kernels per edge and sweep (subtract; abs,
+# compare, two-minimum update and sign count; abs, compare, two selects,
+# multiply and the bf16 rounding of the new message; the two-operation
+# write-back) and per edge of one syndrome pass
+OPS_PER_EDGE_SWEEP = 15
+OPS_PER_EDGE_CHECK = 2
+FFT_FRAMES = 32            # frames of the K6 check and the FFT microbench
+STREAM_FRAMES = 4          # frames of the vendor-rate streaming captures
+STREAM_TAIL = 4096         # samples of the next frame played after the last
 # the noise cases of the adaptive kernels: (label, sigma, traced floor)
 NOISE_CASES = (("clean", 0.0, 0), ("sigma 0.65", 0.65, 0),
                ("sigma 0.74", 0.74, 0), ("sigma 0.65 floor 8", 0.65, 8))
@@ -75,10 +108,30 @@ def cuda_ms(fn, reps):
 
 
 def kernel_wrappers():
-    """{name: the launch-counting wrapper} of K1-K4."""
+    """{name: the launch-counting wrapper} of K1-K6."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import fft_stage1
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as ll
     return {"K1": ll.ldpc_layered_cuda, "K2": ll.ldpc_layered_adaptive_cuda,
-            "K3": ll.ldpc_layered_vmem_cuda, "K4": ll.ldpc_layered_hbm_cuda}
+            "K3": ll.ldpc_layered_vmem_cuda, "K4": ll.ldpc_layered_hbm_cuda,
+            "K5": ll.ldpc_layered_fused_io_cuda,
+            "K6": fft_stage1.fft_stage1_cuda}
+
+
+def ldpc_bound(code, batch, in_bytes, sweeps, checks=0):
+    """The least time the card could take for one layered decode: the
+    larger of its bytes (LLRs read once, bits written once) over the
+    memory rate and its f32 operations over the f32 rate, for the sweeps
+    and syndrome passes this run's data needed.
+    -> (bound ms, "bytes" or "operations")."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as ll
+    tab = ll.qc_tables(*code)
+    edges = int((tab.layer_deg + 2).sum()) * 360
+    ops = edges * batch * (OPS_PER_EDGE_SWEEP * sweeps
+                           + OPS_PER_EDGE_CHECK * checks)
+    byts = tab.n * batch * (in_bytes + 1)
+    t_ops, t_bytes = ops / F32_FLOPS, byts / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
 
 
 def phase_build():
@@ -90,11 +143,14 @@ def phase_build():
         f"{torch.cuda.get_device_name(0)}")
     from sdr_receiver_dvb_t2_tpu_torch import _build
     t0 = time.time()
-    _build.load("ldpc_layered")
-    regs = [ln.strip() for ln in _build.build_log("ldpc_layered").splitlines()
-            if "registers" in ln]
-    log(f"[build] ldpc_layered.cu in {time.time() - t0:.2f} s; ptxas: "
-        + " | ".join(regs))
+    _build.build_all()
+    log(f"[build] csrc/*.cu in parallel in {time.time() - t0:.2f} s")
+    for name in ("ldpc_layered", "fft_stage1"):
+        _build.load(name)
+        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
+                if "registers" in ln or "spill" in ln and "0 bytes spill"
+                not in ln]
+        log(f"[build] {name}.cu ptxas: " + " | ".join(regs))
 
 
 def _llrs(cw, sigma, rng, dtype):
@@ -114,11 +170,13 @@ def _diff(a, b):
 def phase_adaptive(tag, dec, code, dtype, seed):
     """An adaptive kernel (K1 or K2) against its plain version on the
     noise cases; tolerance 0 (bits and sweep counts are integers).
-    -> (worst |diff|, (kernel ms, plain ms) at sigma 0.65)."""
+    -> the kernel's record: worst |diff|, and at sigma 0.65 the kernel's
+    and the plain version's ms and the kernel's bound."""
     from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen
     cw = benchgen.codewords(*code, NUM_BLOCKS, seed=seed)
     rng = np.random.default_rng(seed)
     worst, timed = 0, None
+    in_bytes = torch.finfo(dtype).bits // 8
     for label, sigma, floor in NOISE_CASES:
         v = _llrs(cw, sigma, rng, dtype)
         kb, kit = dec.kernel(v, floor)
@@ -137,29 +195,44 @@ def phase_adaptive(tag, dec, code, dtype, seed):
             raise RuntimeError(f"{tag} disagrees with its plain version "
                                f"({label})")
         if label == "sigma 0.65":
-            timed = (k_ms, p_ms)
-    return worst, timed
+            sweeps = int(kit)
+            bound, by = ldpc_bound(code, NUM_BLOCKS, in_bytes, sweeps,
+                                   checks=sweeps // dec.check_every)
+            timed = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": None}
+    return {"max_abs_err": worst, **timed}
 
 
 def phase_fixed(tag, rate, variant, sigma_hard, seed):
-    """A fixed-iteration kernel (K3 or K4) through `make_decoder_nb`'s
-    automatic choice against its plain version, tolerance 0 on bits: 12
-    sweeps at sigma 0.65 (timed), and 6 sweeps at `sigma_hard`, beyond the
-    code's threshold, where codewords must stay undecoded (bits that have
-    not settled on the transmitted word show any numerical difference).
-    -> (worst |diff|, (kernel ms, plain ms) at sigma 0.65)."""
-    from sdr_receiver_dvb_t2_tpu.dvbt2.params import FECFrame
+    """A fixed-iteration kernel against its plain version, tolerance 0 on
+    bits: K3 or K4 through `make_decoder_nb`'s automatic choice (`variant`
+    "vmem" or "hbm"), or K5 through `make_decoder_nb_fused_io` (`variant`
+    "fused_io").  12 sweeps at sigma 0.65 (timed), and 6 sweeps at
+    `sigma_hard`, beyond the code's threshold, where codewords must stay
+    undecoded (bits that have not settled on the transmitted word show any
+    numerical difference).
+    -> the kernel's record: worst |diff|, and at sigma 0.65 the kernel's
+    and the plain version's ms and the kernel's bound."""
+    from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import FECFrame
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered
     from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen
     cw = benchgen.codewords(FECFrame.NORMAL, rate, NUM_BLOCKS, seed=seed)
     rng = np.random.default_rng(seed)
     worst, timed = 0, None
     for sigma, sweeps in ((0.65, 12), (sigma_hard, 6)):
-        dec = ldpc_layered.make_decoder_nb(FECFrame.NORMAL, rate,
-                                           iters=sweeps, batch=NUM_BLOCKS)
-        if dec.core.variant != variant:
-            raise RuntimeError(f"make_decoder_nb chose {dec.core.variant} "
-                               f"at NORMAL {rate.name}, expected {variant}")
+        if variant == "fused_io":
+            dec = ldpc_layered.make_decoder_nb_fused_io(
+                FECFrame.NORMAL, rate, iters=sweeps, batch=NUM_BLOCKS)
+            what = "bf16 LLRs staged in, c2v torch.bfloat16"
+        else:
+            dec = ldpc_layered.make_decoder_nb(
+                FECFrame.NORMAL, rate, iters=sweeps, batch=NUM_BLOCKS)
+            if dec.core.variant != variant:
+                raise RuntimeError(
+                    f"make_decoder_nb chose {dec.core.variant} at NORMAL "
+                    f"{rate.name}, expected {variant}")
+            what = f"auto choice {variant!r} (c2v {dec.core.c2v_dtype})"
+        # K5 gets f32 LLRs too: its front door rounds them to bf16
         v = _llrs(cw, sigma, rng, torch.float32)
         kb, pb = dec.kernel(v), dec.plain(v)
         torch.cuda.synchronize()
@@ -168,14 +241,17 @@ def phase_fixed(tag, rate, variant, sigma_hard, seed):
         wrong = kb.cpu().numpy().T != cw
         ok_cw = int((~wrong).all(axis=1).sum())
         line = (f"[{tag} vs plain] NORMAL {rate.name} B={NUM_BLOCKS} sigma "
-                f"{sigma}, auto choice {variant!r} (c2v "
-                f"{dec.core.c2v_dtype}), {sweeps} sweeps: max |diff| {err} "
+                f"{sigma}, {what}, {sweeps} sweeps: max |diff| {err} "
                 f"(tolerance 0), {ok_cw}/{NUM_BLOCKS} codewords decoded, "
                 f"{int(wrong.sum())} bits off the transmitted words")
         if sweeps == 12:
-            timed = (cuda_ms(lambda: dec.kernel(v), 5),
-                     cuda_ms(lambda: dec.plain(v), 1))
-            line += f"; kernel {timed[0]:.3f} ms, plain {timed[1]:.3f} ms"
+            bound, by = ldpc_bound((FECFrame.NORMAL, rate), NUM_BLOCKS,
+                                   2 if variant == "fused_io" else 4, sweeps)
+            timed = {"ms": cuda_ms(lambda: dec.kernel(v), 5),
+                     "plain_ms": cuda_ms(lambda: dec.plain(v), 1),
+                     "bound_ms": bound, "bound_by": by, "library_ms": None}
+            line += (f"; kernel {timed['ms']:.3f} ms, plain "
+                     f"{timed['plain_ms']:.3f} ms, bound {bound:.4f} ms")
         log(line)
         if err != 0:
             raise RuntimeError(f"{tag} disagrees with its plain version "
@@ -183,11 +259,66 @@ def phase_fixed(tag, rate, variant, sigma_hard, seed):
         if sigma == sigma_hard and ok_cw == NUM_BLOCKS:
             raise RuntimeError(f"{tag}: every codeword decoded at sigma "
                                f"{sigma}; the check does not discriminate")
-    return worst, timed
+    return {"max_abs_err": worst, **timed}
+
+
+def phase_k6(f):
+    """K6 at full width (n=32768 as 256 x 128, 60 symbols, `f` frames)
+    against its plain version within `fft_stage1.compare`'s tolerance (one
+    bf16 ulp of the larger magnitude plus 2^-18 of the plane's peak; under
+    1% of the elements differing at all); stage 1 by K6 plus the stage-2
+    einsum against torch.fft.fft; times of the kernel, the plain version
+    and the same function through bf16 torch.matmul."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import fft_stage1, mxu_fft
+    from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
+    n, s = mb.N, mb.S
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    xr = torch.randn((f, s, n), generator=gen, device="cuda")
+    xi = torch.randn((f, s, n), generator=gen, device="cuda")
+    stage = fft_stage1.Stage1(n)
+    kr, ki = stage.kernel(xr, xi)
+    pr, pi = stage.plain(xr, xi)
+    torch.cuda.synchronize()
+    res = [fft_stage1.compare(kr, pr), fft_stage1.compare(ki, pi)]
+    err = max(r["max_abs_err"] for r in res)
+    frac = max(r["frac_differ"] for r in res)
+    beyond = sum(r["n_beyond"] for r in res)
+    log(f"[K6 vs plain] ({f}, {s}, {n}) as {stage.n1} x {stage.n2}: max "
+        f"|diff| {err:.4g} (peak {float(pr.float().abs().max()):.4g}), "
+        f"{100 * frac:.4f}% of elements differ, {beyond} beyond the "
+        f"tolerance")
+    if not all(r["ok"] for r in res):
+        raise RuntimeError("K6 disagrees with its plain version")
+    out_r, out_i = mxu_fft.stage2_carrier_major(kr[:2], ki[:2], n)
+    ref = torch.fft.fft(torch.complex(xr[:2].double(), xi[:2].double()),
+                        dim=-1).permute(2, 1, 0)
+    got = torch.complex(out_r.double(), out_i.double())
+    rel = float((got - ref).abs().pow(2).mean().sqrt()
+                / ref.abs().pow(2).mean().sqrt())
+    log(f"[K6 + stage 2 vs torch.fft.fft] relative RMS error {rel:.3e} "
+        f"(bound 1e-2: bf16 input, twiddled stage and output)")
+    if not rel < 1e-2:
+        raise RuntimeError("K6 plus stage 2 is not the FFT")
+    yr, yi = stage._input(xr, xi)
+    tabs = stage.tables("cuda")
+    k_ms = cuda_ms(lambda: fft_stage1.fft_stage1_cuda(yr, yi, *tabs), 10)
+    p_ms = cuda_ms(lambda: fft_stage1.stage1_plain(yr, yi, *tabs), 2)
+    l_ms = cuda_ms(lambda: mb.stage1_matmul_bf16(yr, yi, *tabs), 10)
+    n1, n2 = stage.n1, stage.n2
+    byts = 2 * (4 * f * s * n + 2 * n1 * n1 + 2 * n1 * n2)
+    ops = f * s * (4 * 2 * n1 * n1 * n2 + 6 * n)
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS
+    bound = 1e3 * max(t_b, t_o)
+    log(f"[K6 timing] kernel {k_ms:.3f} ms, plain (f32 matmul) {p_ms:.3f} "
+        f"ms, bf16 torch.matmul route {l_ms:.3f} ms, bound {bound:.3f} ms "
+        f"({byts / 1e6:.0f} MB, {ops / 1e9:.0f} GFLOP)")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "bytes" if t_b >= t_o
+            else "operations", "library_ms": l_ms}
 
 
 def phase_kernels():
-    from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate
+    from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import CodeRate
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as ll
     from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen
     _, plp = benchgen.headline_mode(NUM_BLOCKS)
@@ -201,6 +332,8 @@ def phase_kernels():
             layer_order="reversed"), code, torch.float32, 6),
         "K3": phase_fixed("K3", CodeRate.C2_3, "vmem", 0.74, 7),
         "K4": phase_fixed("K4", CodeRate.C3_5, "hbm", 0.82, 8),
+        "K5": phase_fixed("K5", CodeRate.C2_3, "fused_io", 0.74, 9),
+        "K6": phase_k6(FFT_FRAMES),
     }
 
 
@@ -271,7 +404,50 @@ def phase_slice(n_frames):
     if err != 0:
         raise RuntimeError("K1 disagrees with its plain version on the "
                            "main path's LLRs")
-    return launches, err
+
+    # K5's path is its own front door: the fixed decoder on the same LLRs
+    dec5 = ldpc_layered.make_decoder_nb_fused_io(plp.fec_frame, plp.rate,
+                                                 iters=12, batch=NUM_BLOCKS)
+    counts = _zero_counts()
+    bits5 = dec5(llr0)
+    torch.cuda.synchronize()
+    launches["K5"] = _read_counts(counts)["K5"]
+    ok5 = int(step.bch_check(bits5[:plp.fec.n_bch]).sum())
+    bytes5 = step.bb_pack(bits5).cpu().numpy().T.astype(np.uint8)
+    same5 = np.array_equal(bytes5, rows[0])
+    err5 = _diff(bits5, dec5.plain(llr0))
+    log(f"[K5 path] make_decoder_nb_fused_io, 12 sweeps on frame-0 LLRs at "
+        f"20 dB: BCH clean {ok5}/{NUM_BLOCKS}, BB bytes equal to the "
+        f"transmitted ones: {same5}, max |diff| to plain {err5} (tolerance "
+        f"0), launches {launches['K5']}")
+    if ok5 != NUM_BLOCKS or not same5 or err5 != 0 or launches["K5"] == 0:
+        raise RuntimeError("K5 path gate failed")
+    return launches, max(err, err5)
+
+
+def phase_fft_tool(f):
+    """K6's path: the FFT microbench tool at (f, 60, 32768), its table
+    printed; gates on every route's error against the f64 FFT.
+    -> K6's launch count."""
+    from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
+    counts = _zero_counts()
+    table = mb.run(f)
+    torch.cuda.synchronize()
+    launches = _read_counts(counts)["K6"]
+    # f32 routes: f32 rounding through a 32K-point transform; bf16 routes:
+    # the 2^-9 input and intermediate roundings
+    limits = {"cufft f32 + bf16 cast + transpose": 1e-2,
+              "matmul fft bf16": 2e-2, "matmul fft f32": 1e-4,
+              "k6 stage 1 + stage-2 einsum": 1e-2}
+    for name, r in table.items():
+        err = "" if r["rel_err"] is None else f", err {r['rel_err']:.2e}"
+        log(f"[fft microbench F={f}] {name}: {r['ms']:.3f} ms = "
+            f"{r['ms'] / f:.4f} ms/frame{err}")
+        if name in limits and not r["rel_err"] < limits[name]:
+            raise RuntimeError(f"fft microbench: {name} is off the f64 FFT")
+    if launches == 0:
+        raise RuntimeError("the FFT microbench never launched K6")
+    return launches
 
 
 def _zero_counts():
@@ -337,8 +513,8 @@ def phase_receiver(p, plp, plp_k4, n_frames, device, seed=11):
     adaptive=False on the clean capture (K3) and at `plp_k4`'s code (K4),
     and the streaming batched path.  -> launch counts summed over the
     routes."""
-    from sdr_receiver_dvb_t2_tpu.io import devices
-    from sdr_receiver_dvb_t2_tpu.tx.modulator import apply_cfo, awgn
+    from sdr_receiver_dvb_t2_tpu_torch.io import devices
+    from sdr_receiver_dvb_t2_tpu_torch.tx.modulator import apply_cfo, awgn
     from sdr_receiver_dvb_t2_tpu_torch.rx.device_receiver import \
         DeviceT2Receiver
     from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen as bg
@@ -383,7 +559,7 @@ def phase_receiver(p, plp, plp_k4, n_frames, device, seed=11):
            for k in ("frontend", "decode", "decode_batch") if k in stages}
     batch_frames = stages["decode_batch"].items / p.frame_samples \
         if "decode_batch" in stages else 0
-    log(f"[receiver streaming] {st.frontend} (host front end) "
+    log(f"[receiver streaming] front end {st.frontend} "
         f"{1e3 * stages['frontend'].seconds / n_frames:.2f} ms/frame; "
         f"batched path "
         f"{1e3 * stages['decode_batch'].seconds / max(batch_frames, 1):.2f}"
@@ -393,11 +569,89 @@ def phase_receiver(p, plp, plp_k4, n_frames, device, seed=11):
     if rx.batch_supersteps < 1 or launches["K2"] == 0:
         raise RuntimeError("the streaming run made no batched superstep "
                            "through K2")
-    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-    if jax_mods:
-        raise RuntimeError(f"jax was imported: {jax_mods[:5]}")
-    log("[receiver] no jax module loaded")
+    if st.frontend != "DeviceFrontendChain":
+        raise RuntimeError(f"streaming ran {st.frontend}, not the device "
+                           "front-end chain")
     return total
+
+
+def phase_stream_frontend(p, plp, device, seed=21):
+    """Streaming with the sample correction on the card: the headline
+    capture resampled on the host to a vendor rate and played by a
+    `SimulatedDevice` at that rate.  9.2 Msps (SdrPlay/Pluto, +0.625%: the
+    drift stage) with LO offset, DC and IQ imbalance; 10 Msps (AirSpy,
+    35/32: the polyphase stage) clean, one frame fewer and running on into
+    the next frame's P1, because the two stages' stencils hold back more
+    samples than the tracker forgives at the end of a capture.  Every frame
+    played must decode.  -> launch counts summed."""
+    from sdr_receiver_dvb_t2_tpu_torch.io import devices
+    from sdr_receiver_dvb_t2_tpu_torch.rx import frontend as hostfe
+    from sdr_receiver_dvb_t2_tpu_torch.rx.device_receiver import \
+        DeviceT2Receiver
+    from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen as bg
+
+    ts, frames, _ = bg.modulate(p, plp, STREAM_FRAMES, seed=seed)
+    clean = np.concatenate(frames)
+    total = {k: 0 for k in kernel_wrappers()}
+    routes = (
+        ("9.2 Msps drift stage", 9.2e6, STREAM_FRAMES, 0, dict(
+            lo_offset_hz=700.0, dc_offset=0.012 - 0.008j, iq_gain=1.02,
+            iq_skew=0.012)),
+        ("10 Msps 35/32 stage", 10.0e6, STREAM_FRAMES - 1, STREAM_TAIL, {}),
+    )
+    for label, rate, n_play, tail, impair in routes:
+        t0 = time.time()
+        x = hostfe.sinc_resample(clean[:n_play * p.frame_samples + tail],
+                                 devices.SAMPLE_RATE / rate)
+        t_res = time.time() - t0
+        rx = DeviceT2Receiver(device=device, stream_batch=2)
+        sr = devices.StreamingReceiver(
+            devices.SimulatedDevice(x, snr_db=30, sample_rate=rate,
+                                    **impair), receiver=rx)
+        got = []
+        counts = _zero_counts()
+        t0 = time.perf_counter()
+        st = sr.run(ts_sink=got.append)
+        wall = time.perf_counter() - t0
+        launches = _read_counts(counts)
+        for k, v in launches.items():
+            total[k] += v
+        ts_got = np.concatenate(got) if got else np.zeros(0, np.uint8)
+        exact = len(ts_got) > 0 and np.array_equal(ts_got, ts[:len(ts_got)])
+        # the DC/IQ state mixes with every block's samples on the device,
+        # so a state on the card after blocks ran means they were there too
+        if st.frontend != "DeviceFrontendChain":
+            raise RuntimeError(f"streaming ran {st.frontend}, not the "
+                               f"device front-end chain ({label})")
+        chain = sr.chain
+        on_card = chain._blocks > 0 and chain._dciq_state.is_cuda
+        fe = st.metrics.stages["frontend"]
+        log(f"[stream {label}] host resample to {rate / 1e6:.1f} Msps "
+            f"{t_res:.1f} s; front end {st.frontend}, {chain._blocks} "
+            f"blocks corrected with the state on the card: {on_card}; "
+            f"frames decoded {st.frames_decoded}/{n_play}, TS errors "
+            f"{st.ts_errors}, TS bit-exact={exact} ({len(ts_got)} bytes); "
+            f"front end {1e3 * fe.seconds / n_play:.2f} ms per frame played "
+            f"over {fe.calls} blocks (the host CorrectorChain took 59-88 "
+            f"ms/frame before the chain moved to the card); "
+            f"cfo {st.cfo_hz:+.1f} Hz, IQ gain est {st.iq_gain_est:.4f}"
+            f"; supersteps {rx.batch_supersteps}; run {wall:.2f} s; "
+            f"launches {launches}")
+        if (not on_card or st.frames_decoded != n_play
+                or st.ts_errors != 0 or not exact
+                or launches["K2"] == 0):
+            raise RuntimeError(f"streaming front-end gate failed ({label})")
+    return total
+
+
+def gate_no_foreign_modules():
+    """Neither jax nor the JAX package (`sdr_receiver_dvb_t2_tpu`, not the
+    port, whose name it prefixes) may be loaded."""
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                 ("jax", "jaxlib", "sdr_receiver_dvb_t2_tpu"))
+    if bad:
+        raise RuntimeError(f"foreign modules were imported: {bad[:5]}")
+    log("[modules] no jax module and no module of the JAX package loaded")
 
 
 def main():
@@ -412,31 +666,38 @@ def main():
         sys.exit(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate
+    from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import CodeRate
     from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen as bg
 
     phase_build()
     checks = phase_kernels()
     launches, err_slice = phase_slice(args.frames)
     p, plp = bg.headline_mode(NUM_BLOCKS)
+    launches["K6"] = phase_fft_tool(FFT_FRAMES)
     rx_launches = phase_receiver(
         p, plp, dataclasses.replace(plp, rate=CodeRate.C3_5),
         args.rx_frames, "cuda")
+    fe_launches = phase_stream_frontend(p, plp, "cuda")
+    gate_no_foreign_modules()
     names = {"K1": "ldpc_layered_vmem_adaptive_io",
              "K2": "ldpc_layered_vmem_adaptive",
-             "K3": "ldpc_layered_vmem", "K4": "ldpc_layered_hbm"}
-    lines = {"K1": 819, "K2": 665, "K3": 1020, "K4": 227}
+             "K3": "ldpc_layered_vmem", "K4": "ldpc_layered_hbm",
+             "K5": "ldpc_layered_fused_io", "K6": "fft_stage1"}
+    replaces = {"K1": f"{PALLAS}:819", "K2": f"{PALLAS}:665",
+                "K3": f"{PALLAS}:1020", "K4": f"{PALLAS}:227",
+                "K5": f"{PALLAS}:1137", "K6": "tools/fft_microbench.py:147"}
     kernels = []
-    for k in ("K1", "K2", "K3", "K4"):
-        err, (k_ms, p_ms) = checks[k]
-        n = launches[k] + rx_launches[k]
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
+        rec = dict(checks[k])
+        n = launches[k] + rx_launches[k] + fe_launches[k]
         if n == 0:
             raise RuntimeError(f"{k} was never launched on a main path")
+        if k in ("K1", "K5"):
+            rec["max_abs_err"] = max(rec["max_abs_err"], err_slice)
         kernels.append({
-            "name": f"{k} {names[k]}", "route": "cuda", "source": SOURCE,
-            "replaces": f"{PALLAS}:{lines[k]}", "launches": n,
-            "max_abs_err": max(err, err_slice) if k == "K1" else err,
-            "ms": k_ms, "plain_ms": p_ms})
+            "name": f"{k} {names[k]}", "route": "cuda",
+            "source": SOURCE_K6 if k == "K6" else SOURCE,
+            "replaces": replaces[k], "launches": n, **rec})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,46 @@ def _paths(name: str) -> tuple[Path, Path]:
     return src, CACHE / f"{name}-{key}.so"
 
 
+def _start_build(name: str):
+    """Start nvcc on `csrc/<name>.cu` unless its library is cached.
+    -> (process, temporary output, final library, source) or None."""
+    src, so = _paths(name)
+    if so.exists():
+        return None
+    CACHE.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so, src
+
+
+def _finish_build(started) -> None:
+    proc, tmp, so, src = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+    so.with_suffix(".log").write_text(out)
+    os.replace(tmp, so)      # a concurrent process never sees a partial file
+
+
+def build_all() -> None:
+    """Build every kernel source of `csrc/` whose library is not cached,
+    one nvcc per source, all started together."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with _LOCK:
+        started = [b for b in map(_start_build, names) if b is not None]
+        errors = []
+        for b in started:
+            try:
+                _finish_build(b)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build `csrc/<name>.cu` if its cached library is missing, then load
     it (once per process)."""
@@ -56,20 +96,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        src, so = _paths(name)
-        if not so.exists():
-            CACHE.mkdir(exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed on {src.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        started = _start_build(name)
+        if started is not None:
+            _finish_build(started)
+        lib = ctypes.CDLL(str(_paths(name)[1]))
         _LIBS[name] = lib
         return lib
 

@@ -1,5 +1,5 @@
 // Layered offset-min-sum QC-LDPC decoders for the DVB-T2 codes, for Hopper
-// (sm_90a).  One kernel body, four compile-time instantiations, each
+// (sm_90a).  One kernel body, five compile-time instantiations, each
 // replacing one TPU kernel of sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:
 //
 //   K1 make_pallas_layered_vmem_adaptive_io: bf16 LLRs staged in, bf16 c2v,
@@ -12,7 +12,9 @@
 //   K4 make_pallas_layered: f32 totals in, f32 c2v, fixed sweeps in natural
 //      order; its two-minimum scan runs over degmax + 2 slots with +BIG
 //      messages in the unused info slots and takes the leave-one-out
-//      minimum through the argmin of the strict-< scan.
+//      minimum through the argmin of the strict-< scan;
+//   K5 make_decoder_nb_fused_io: K3 with the LLRs staged in as bf16 (K1's
+//      input stage): the totals start from bf16-rounded LLRs.
 //
 // Same arithmetic as the TPU kernels, operation for operation: f32 totals
 // and messages, new c2v rounded to bf16 (K1-K3, __float2bfloat16_rn) or kept
@@ -49,8 +51,8 @@
 // sweeps and, once the sweep count reaches the floor max(min_it,
 // min_iters), counts its codeword's failed checks.  The last CTA to arrive
 // sets done when the batch total is 0 (threadfence reduction: integer
-// atomics, exact in any order).  Fixed exit (K3, K4): one launch runs all
-// sweeps and checks nothing.
+// atomics, exact in any order).  Fixed exit (K3, K4, K5): one launch runs
+// all sweeps and checks nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -239,7 +241,7 @@ __device__ int syndrome(const Tables& tb, const float* s_ti, const float* tp) {
   return bad;
 }
 
-// (B, n) LLRs (bf16 for K1, f32 for K2-K4) -> f32 totals.
+// (B, n) LLRs (bf16 for K1 and K5, f32 for K2-K4) -> f32 totals.
 template <typename In>
 __global__ void __launch_bounds__(THREADS)
 stage_in(const In* __restrict__ llr, float* ti, float* tp, int* ctl,
@@ -417,6 +419,16 @@ int ldpc_k3_decode(const void* llr, void* bits, void* ti, void* tp,
                    int k, int n_groups, int q, int degmax, int iters,
                    float offset, void* stream) {
   return decode<float, __nv_bfloat16, false>(
+      llr, bits, ti, tp, c2v, ctl, tables, nullptr, batch, n, k, n_groups, q,
+      degmax, iters, 1, 0, false, offset, stream);
+}
+
+// K5: llr (B, n) bf16, bf16 c2v, `iters` sweeps.
+int ldpc_k5_decode(const void* llr, void* bits, void* ti, void* tp,
+                   void* c2v, void* ctl, const void* tables, int batch, int n,
+                   int k, int n_groups, int q, int degmax, int iters,
+                   float offset, void* stream) {
+  return decode<__nv_bfloat16, __nv_bfloat16, false>(
       llr, bits, ti, tp, c2v, ctl, tables, nullptr, batch, n, k, n_groups, q,
       degmax, iters, 1, 0, false, offset, stream);
 }

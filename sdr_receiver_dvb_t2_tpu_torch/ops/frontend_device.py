@@ -1,7 +1,9 @@
 """Device-resident sample-domain front end: raw impaired device-rate IQ ->
-corrected, GI-stripped OFDM symbols.  Port of the main-path entry of
-`sdr_receiver_dvb_t2_tpu/ops/frontend_device.py` (`make_frontend_symbols`
-with its helpers) plus the impairment model (`make_resampler`,
+corrected elementary-rate samples.  Port of
+`sdr_receiver_dvb_t2_tpu/ops/frontend_device.py`: `make_frontend_symbols`
+(the superstep's entry: GI-stripped OFDM symbols), `make_frontend` (whole
+frame bodies), the streaming `DeviceFrontendChain` with
+`make_rational_resampler`, and the impairment model (`make_resampler`,
 `make_impairer`) that builds test and smoke input.
 
 Stages (dvbt2_demodulator.cpp:182-221 in the reference receiver): per-frame
@@ -9,8 +11,8 @@ DC and 1-bit IQ-imbalance estimation and correction, NCO derotation with a
 compensated per-frame phase, and a 17-tap generalized-Farrow resampler that
 reads at the post-P1, post-guard sample grid.
 
-The TPU version scans over OFDM symbols; here every (frame, symbol,
-sample) position is computed in one batched pass.  Scalar arguments
+The TPU version scans over OFDM symbols or output chunks; here every
+(frame, symbol or chunk, sample) position is computed in one batched pass.  Scalar arguments
 (cfo_hz, ratio, pos0, phase0) are taken as f32, as the TPU version's traced
 scalars are, and every float operation runs eagerly in the same order: no
 multiply-add is contracted, which `_mod2pi_prod` needs.
@@ -56,7 +58,7 @@ def farrow_bank(half: int = 8, deg: int = 7, m_max: float = 2.0,
 
 # the front end's bank: degree-7 fits, exact to 2e-4 (the JAX default)
 DEG = 7
-# resampler output chunk: the stencil start is fixed per chunk, so
+# default resampler output chunk: the stencil start is fixed per chunk, so
 # chunk * |ratio - 1| must stay under ~0.9 (0.36 at 22 ppm)
 CHUNK = 16384
 
@@ -180,6 +182,71 @@ def _make_slice_corrector(out_len: int, slice_len: int, cf):
     return correct
 
 
+def _chunk_grid(n_chunks: int, chunk: int, pos0, delta, half: int, dev):
+    """Stencil starts s (n_chunks,) int64 and fractional positions mu
+    (n_chunks, chunk) of a chunked drift resampler: output k reads at
+    pos0 + k*(1 + delta); within a chunk the start is fixed and the drift
+    folds into mu in [0, ~2).  The f32 operations and their order are the
+    TPU version's (the stencil start is taken per chunk, so the chunk size
+    shows in the output's last bits)."""
+    k_local = torch.arange(chunk, dtype=torch.float32, device=dev)
+    c = torch.arange(n_chunks, dtype=torch.float32, device=dev)
+    r0 = pos0 + c * chunk * delta
+    r = r0[:, None] + k_local * delta
+    b = torch.floor(torch.minimum(r0, r0 + (chunk - 1) * delta))
+    mu = r - b[:, None]
+    s = (c * chunk + b).to(torch.int64) - (half - 1)
+    return s, mu
+
+
+def make_frontend(n_out: int, fs: float, half: int = 8, chunk: int = CHUNK,
+                  planar: bool = False):
+    """Full steady-state correction chain, batched over frames.
+
+    fn(raw (F, n_in, 2), cfo_hz, ratio, pos0, phase0)
+      -> (out (F, n_out, 2), dc (F, 2), giq (F, 2))
+
+    Stages in the reference receiver's order
+    (dvbt2_demodulator.cpp:182-221): DC removal (per-frame mean), IQ
+    imbalance (1-bit statistic), NCO derotation at the DEVICE rate fs*ratio
+    (applied to the raw samples, phase continuous across the frame axis),
+    and generalized-Farrow resampling back to the elementary rate in
+    chunks of `chunk` outputs (ratio = device rate / fs).
+
+    With planar=True the signature is fn(raw_r (F, n_in), raw_i (F, n_in),
+    ...) -> ((out_r, out_i), dc, giq)."""
+    cf = _bank(half)
+    n_chunks = -(-n_out // chunk)
+    slice_len = chunk + 2 * half + 2
+    correct = _make_slice_corrector(chunk, slice_len, cf)
+
+    def frontend_planar(raw_r, raw_i, cfo_hz, ratio, pos0, phase0):
+        f, n_in = raw_r.shape
+        dev = raw_r.device
+        cfo_hz, ratio, pos0, phase0 = (_f32(v, dev) for v in
+                                       (cfo_hz, ratio, pos0, phase0))
+        est, dc_out, giq = _estimate_dciq(raw_r, raw_i)
+        nco = _nco_terms(cfo_hz, ratio, phase0, fs, slice_len, f, n_in)
+        pad = n_chunks * chunk + slice_len - n_in + half
+        xr = torch.nn.functional.pad(raw_r, (0, max(pad, 0)))
+        xi = torch.nn.functional.pad(raw_i, (0, max(pad, 0)))
+        s, mu = _chunk_grid(n_chunks, chunk, pos0, ratio - 1.0, half, dev)
+        out_r, out_i = correct(xr, xi, s, mu, est, nco)
+        return ((out_r.reshape(f, n_chunks * chunk)[:, :n_out],
+                 out_i.reshape(f, n_chunks * chunk)[:, :n_out]),
+                dc_out, giq)
+
+    if planar:
+        return frontend_planar
+
+    def frontend(raw, cfo_hz, ratio, pos0, phase0):
+        (out_r, out_i), dc_out, giq = frontend_planar(
+            raw[..., 0], raw[..., 1], cfo_hz, ratio, pos0, phase0)
+        return torch.stack([out_r, out_i], -1), dc_out, giq
+
+    return frontend
+
+
 def make_frontend_symbols(n_sym: int, sym_size: int, guard: int, fs: float,
                           p1_len: int = 2048, half: int = 8, sym_order=None,
                           out_dtype=None):
@@ -233,34 +300,27 @@ def make_frontend_symbols(n_sym: int, sym_size: int, guard: int, fs: float,
 # Impairment model (test and smoke input synthesis: the inverse chain)
 # --------------------------------------------------------------------------
 
-def make_resampler(n_out: int, half: int = 8):
+def make_resampler(n_out: int, half: int = 8, chunk: int = CHUNK):
     """Batched arbitrary resampler: (F, n_in, 2) -> (F, n_out, 2).
 
     Output sample k of every frame interpolates its frame's input at
-    pos0 + k*ratio, in chunks of CHUNK outputs whose stencil start is
+    pos0 + k*ratio, in chunks of `chunk` outputs whose stencil start is
     fixed (the in-chunk drift folds into mu in [0, ~2)), exactly as the TPU
-    version chunks it at its default chunk size.
+    version chunks it; chunk * |ratio - 1| must stay under ~0.9 and pos0
+    must leave `half` samples of left context.
 
     Returns fn(x (F, n_in, 2), ratio, pos0) -> (F, n_out, 2)."""
     cf = _bank(half)
-    chunk = CHUNK
     n_chunks = -(-n_out // chunk)
     slice_len = chunk + 2 * half + 2
 
     def resample(x, ratio, pos0):
         f, n_in = x.shape[0], x.shape[1]
         dev = x.device
-        delta = _f32(ratio, dev) - 1.0
-        pos0 = _f32(pos0, dev)
         pad = n_chunks * chunk + slice_len - n_in + half
         x = torch.nn.functional.pad(x, (0, 0, 0, max(pad, 0)))
-        k_local = torch.arange(chunk, dtype=torch.float32, device=dev)
-        c = torch.arange(n_chunks, dtype=torch.float32, device=dev)
-        r0 = pos0 + c * chunk * delta                    # (n_chunks,)
-        r = r0[:, None] + k_local * delta
-        b = torch.floor(torch.minimum(r0, r0 + (chunk - 1) * delta))
-        mu = r - b[:, None]
-        s = (c * chunk + b).to(torch.int64) - (half - 1)
+        s, mu = _chunk_grid(n_chunks, chunk, _f32(pos0, dev),
+                            _f32(ratio, dev) - 1.0, half, dev)
         sl = _slices(x, s, slice_len)              # (F, n_chunks, len, 2)
         acc = None
         for t, cf_t in enumerate(cf):
@@ -310,3 +370,327 @@ def make_impairer(n_raw: int, fs: float, half: int = 8):
         return torch.round(torch.clamp(x * s, -32767.0, 32767.0)) / s
 
     return impair
+
+
+# --------------------------------------------------------------------------
+# Rational polyphase resampler (wide fixed ratios: vendor rate conversion)
+# --------------------------------------------------------------------------
+
+def make_rational_resampler(num: int, den: int, half: int = 8):
+    """Polyphase resampler for an exact rational ratio num/den (input
+    samples per output sample), for the vendor-rate conversions the chunked
+    drift resampler cannot reach (its chunk length bounds |ratio-1|):
+    AirSpy 10 Msps -> 9.142857 is 35/32.
+
+    Output k = a*den + r reads input positions a*num + floor(r*num/den) + j
+    with a fixed fractional phase per r, so each of the den phases is
+    2*half+1 static column slices of the input reshaped into num-sample
+    rows (plus a spill overlap), weighted by scalars evaluated from the
+    fitted Farrow bank at build time.
+
+    Returns (resample, spill): resample(x (F, n_in)) -> ((F, A*den), A)
+    with A = (n_in - spill - num) // num whole input rows consumed; the
+    caller carries the remainder as a halo (integer-exact streaming)."""
+    cf = _bank(half)
+    n_taps = len(cf)
+    offs = [int((r * num) // den) for r in range(den)]
+    mus = [float((r * num) / den - (r * num) // den) for r in range(den)]
+    wtab = []
+    for mu in mus:
+        row = []
+        for cf_t in cf:
+            w = 0.0
+            for c in cf_t:
+                w = w * mu + c
+            row.append(w)
+        wtab.append(row)
+    spill = max(offs) + n_taps + 2
+    if spill > 2 * num:
+        # a row is extended by the next row only: the stencil of the last
+        # phase must end within two rows
+        raise ValueError(f"rational resampler {num}/{den}: the {n_taps}-tap "
+                         f"stencil does not fit two {num}-sample rows")
+
+    def resample(x):
+        f, n_in = x.shape
+        a_blocks = (n_in - spill - num) // num
+        if a_blocks <= 0:
+            return x.new_zeros((f, 0)), 0
+        xe = x[:, :a_blocks * num].reshape(f, a_blocks, num)
+        if spill > num:
+            ext = x[:, num:num + a_blocks * num].reshape(
+                f, a_blocks, num)[:, :, :spill - num]
+            xe = torch.cat([xe, ext], 2)
+        # all den phases at once, tap by tap in the TPU version's order:
+        # phase r reads columns offs[r] + t of its row
+        cols = torch.as_tensor(offs, device=x.device)
+        w = torch.as_tensor(wtab, dtype=x.dtype, device=x.device)
+        acc = None
+        for t in range(n_taps):
+            term = xe[:, :, cols + t] * w[:, t]        # (F, A, den)
+            acc = term if acc is None else acc + term
+        return acc.reshape(f, a_blocks * den), a_blocks
+
+    return resample, spill
+
+
+# --------------------------------------------------------------------------
+# Streaming front-end chain (the CorrectorChain interface, on the device)
+# --------------------------------------------------------------------------
+
+def _to_pairs(x: np.ndarray, device) -> torch.Tensor:
+    """Contiguous complex64 (n,) on the host -> f32 (n, 2) re/im pairs on
+    `device`: complex64 IS interleaved f32 pairs, so nothing is repacked."""
+    return torch.from_numpy(x.view(np.float32).reshape(-1, 2)).to(device)
+
+
+def _from_pairs(t: torch.Tensor) -> np.ndarray:
+    """f32 (n, 2) re/im pairs on any device -> complex64 (n,) on the
+    host."""
+    return t.contiguous().cpu().numpy().view(np.complex64).reshape(-1)
+
+
+class UnsupportedRatio(ValueError):
+    """The device chain refuses this in/out rate ratio; the caller keeps
+    the host chain."""
+
+
+class _DCIQView:
+    """chain.dciq duck type (io/devices.py stats surface)."""
+
+    def __init__(self):
+        self.dc = 0.0 + 0.0j
+        self.g = 1.0
+        self.c = 0.0
+
+
+class DeviceFrontendChain:
+    """Streaming sample-domain front end on a torch device: the
+    rx/frontend.CorrectorChain interface (process / add_frequency /
+    rebase_ratio / freq_hz / ratio / dciq) with the correction stages of
+    this module: DC/IQ estimate and apply, generalized-Farrow resampling,
+    NCO derotation on the OUTPUT samples (StreamCorrector's order; note
+    `make_frontend` derotates the raw input instead).
+
+    The host tracks the exact float read position and output count (the
+    bookkeeping of rx/frontend.StreamCorrector): each call hands the
+    device the halo plus the new block and keeps the outputs those samples
+    determine.  The DC/IQ estimates blend across blocks with an EMA
+    carried as a device tensor (the first block enters with weight 1).
+    The TPU version pads every call to static input and output buckets so
+    that it compiles once; eager PyTorch runs each call at its own length,
+    and the bucket sizes survive only as the limits above which a call is
+    split.
+
+    Supported ratios: the chunked drift resampler covers |ratio-1| <=
+    ~0.012 (the 9.2 Msps SdrPlay/Pluto rates, +0.625%, and elementary-rate
+    captures with clock error); wider exact small rationals of the
+    elementary rate (the 10 Msps AirSpy's 35/32) get a polyphase stage
+    (`make_rational_resampler`) ahead of the drift stage.  Anything else
+    raises UnsupportedRatio (a ValueError) and keeps the host chain
+    (StreamingReceiver catches that one error, logs it and falls back)."""
+
+    MAX_RATIO_DEV = 0.012
+
+    def __init__(self, in_rate: float, out_rate: float, block_len: int,
+                 taps_half: int = 8, alpha: float = 0.25, *, device):
+        self.device = torch.device(device)
+        self.fs = out_rate
+        self.in_rate = in_rate
+        self._base_ratio = in_rate / out_rate
+        self._rat = None
+        if abs(self._base_ratio - 1.0) > self.MAX_RATIO_DEV:
+            # wide fixed ratio: the DVB-T2 device rates are exact small
+            # rationals of the elementary rate (AirSpy 10 Msps = 35/32,
+            # SdrPlay/Pluto 9.2 Msps = 161/160, handled by the chunked
+            # stage alone); insert the polyphase stage and leave only
+            # the ppm-scale residual to the drift resampler
+            from fractions import Fraction
+            fr = Fraction(self._base_ratio).limit_denominator(64)
+            if (fr.denominator > 64 or fr.numerator <= fr.denominator
+                    or abs(float(fr) - self._base_ratio) > 1e-9):
+                raise UnsupportedRatio(
+                    f"device chain supports |ratio-1| <= "
+                    f"{self.MAX_RATIO_DEV} or exact small rationals; "
+                    f"{in_rate}/{out_rate} needs the host chain")
+            self._rat_fn, self._rat_spill = make_rational_resampler(
+                fr.numerator, fr.denominator, half=taps_half)
+            # largest input of one polyphase call; longer ones are split
+            self._rat_L = block_len + self._rat_spill + 2 * fr.numerator
+            self._rat = (fr.numerator, fr.denominator)
+            self._rat_halo = np.zeros(0, np.complex64)
+        self.freq_hz = 0.0
+        self.ratio = self._base_ratio
+        self._post = []              # host re-lock splice stages
+        self.dciq = _DCIQView()
+        self.alpha = alpha
+        self.half = taps_half
+        self._phase = 0.0           # NCO phase of the next OUTPUT sample
+        self._dphi = 0.0
+        self._halo = np.zeros(0, np.complex64)
+        # start the read position `half` samples in, so the first chunk's
+        # stencil never needs left context the stream doesn't have (a
+        # negative slice start would skew the first few outputs)
+        self._pos = float(taps_half)
+        self._blocks = 0
+        self._dciq_state = torch.tensor([0.0, 0.0, 1.0, 0.0],
+                                        dtype=torch.float32,
+                                        device=self.device)
+        # largest input and output of one call: halo stays < taps + ratio
+        # slack + chunk drift
+        self._H = 4 * taps_half + 64
+        self._L = block_len + self._H
+        chunk = 64
+        while chunk * 2 * (self.MAX_RATIO_DEV + 1e-4) <= 0.9 \
+                and chunk < 16384:
+            chunk *= 2
+        self._chunk = chunk
+        self._n_max = int(self._L / (1.0 - self.MAX_RATIO_DEV)) + 2
+
+    def _correct(self, x2, state, ratio, pos0, phase0, dphi, first: bool,
+                 n_out: int):
+        """One block on the device: x2 (n_in, 2) f32 -> (out (n_out, 2),
+        the new DC/IQ state (4,))."""
+        dev = x2.device
+        i, q = x2[:, 0], x2[:, 1]
+        inv_n = 1.0 / torch.full((), float(max(x2.shape[0], 1)),
+                                 dtype=torch.float32, device=dev)
+        dc_i = i.sum() * inv_n
+        dc_q = q.sum() * inv_n
+        i = i - dc_i
+        q = q - dc_q
+        ei = i.abs().sum() * inv_n
+        eq = q.abs().sum() * inv_n
+        g_b = ei / eq.clamp(min=1e-12)
+        c_b = (torch.sign(i) * q).sum() * inv_n / ei.clamp(min=1e-12)
+        w = 1.0 if first else float(self.alpha)
+        new_state = (1 - w) * state + w * torch.stack([dc_i, dc_q, g_b, c_b])
+        g_s, c_s = new_state[2], new_state[3]
+        q = (q * g_s - c_s * i) / torch.sqrt(
+            (1.0 - c_s * c_s).clamp(min=1e-6))
+        resample = make_resampler(n_out, half=self.half, chunk=self._chunk)
+        y = resample(torch.stack([i, q], -1)[None], ratio, pos0)[0]
+        # NCO on OUTPUT samples (StreamCorrector order/semantics)
+        ph = _f32(phase0, dev) + _f32(dphi, dev) * torch.arange(
+            n_out, dtype=torch.float32, device=dev)
+        cs, sn = torch.cos(ph), torch.sin(ph)
+        yi, yq = y[:, 0], y[:, 1]
+        return torch.stack([yi * cs + yq * sn, yq * cs - yi * sn], -1), \
+            new_state
+
+    def _rational_process(self, block: np.ndarray) -> np.ndarray:
+        """Stage 0: exact-rational vendor-rate conversion (polyphase,
+        integer-exact halo bookkeeping on host)."""
+        num, den = self._rat
+        x = np.concatenate([self._rat_halo,
+                            np.asarray(block, np.complex64)])
+        n_true = len(x)
+        if n_true > self._rat_L:
+            # oversized call (re-fed buffer): feed bounded pieces through
+            # this same path; the halo carries across pieces
+            cut = self._rat_L - self._rat_spill - 2 * num
+            self._rat_halo = np.zeros(0, np.complex64)
+            return np.concatenate([self._rational_process(x[i:i + cut])
+                                   for i in range(0, n_true, cut)])
+        a_blocks = max(0, (n_true - self._rat_spill - num) // num)
+        out2, _ = self._rat_fn(_to_pairs(x, self.device).t())
+        self._rat_halo = x[a_blocks * num:]
+        return _from_pairs(out2[:, :a_blocks * den].t())
+
+    @property
+    def _fine_ratio(self) -> float:
+        """Ratio the drift stage runs at: the base ratio over the
+        rational stage.  SCO re-lock factors live in host POST-stages
+        and never widen this, so the Farrow mu-range bound holds for
+        the life of the chain."""
+        if self._rat is None:
+            return self._base_ratio
+        num, den = self._rat
+        return self._base_ratio * den / num
+
+    def process(self, block: np.ndarray) -> np.ndarray:
+        if self._rat is not None:
+            block = self._rational_process(block)
+            if len(block) == 0 and len(self._halo) == 0:
+                return np.zeros(0, np.complex64)
+        y = self._process_fine(np.asarray(block, np.complex64))
+        # SCO re-lock post-stages (host StreamCorrectors appended by
+        # rebase_ratio) consume the device chain's OUTPUT
+        for s in self._post:
+            y = s.process(y)
+        return y
+
+    def _process_fine(self, block: np.ndarray) -> np.ndarray:
+        """The device stage (DC/IQ + drift resampler + NCO); the rational
+        vendor-rate stage has already run."""
+        x = np.concatenate([self._halo, block])
+        n_in = len(x)
+        taps = 2 * self.half + 1
+        n_out = int((n_in - taps - self._pos) / self._fine_ratio)
+        if n_out <= 0:
+            self._halo = x
+            return np.zeros(0, np.complex64)
+        if n_in > self._L or n_out > self._n_max:
+            # oversized call (e.g. a re-fed acquisition buffer): split
+            # into chain-sized pieces THROUGH THIS STAGE ONLY; re-entering
+            # process() would run the rational stage a second time
+            cut = (self._L - self._H) // 2
+            self._halo = np.zeros(0, np.complex64)
+            outs = [self._process_fine(x[i:i + cut])
+                    for i in range(0, n_in, cut)]
+            return np.concatenate([o for o in outs if len(o)]) \
+                if outs else np.zeros(0, np.complex64)
+        first = self._blocks == 0
+        self._blocks += 1
+        out, self._dciq_state = self._correct(
+            _to_pairs(x, self.device), self._dciq_state,
+            np.float32(self._fine_ratio), np.float32(self._pos),
+            np.float32(self._phase), np.float32(self._dphi), first, n_out)
+        st = self._dciq_state.cpu().numpy()
+        self.dciq.dc = complex(st[0], st[1])
+        self.dciq.g = float(st[2])
+        self.dciq.c = float(st[3])
+        # keep `half` samples of PERMANENT left context in the halo so the
+        # read position never drops below the stencil's reach
+        adv = self._pos + n_out * self._fine_ratio
+        drop = max(0, int(np.floor(adv)) - self.half)
+        self._halo = x[drop:]
+        self._pos = adv - drop
+        self._phase = float(np.mod(self._phase + self._dphi * n_out,
+                                   2.0 * np.pi))
+        return _from_pairs(out)
+
+    def add_frequency(self, df_hz: float, applied_samples: int = 0) -> None:
+        self.freq_hz += df_hz
+        self._dphi = 2.0 * np.pi * self.freq_hz / self.fs
+        self._phase = float(np.mod(
+            self._phase + 2.0 * np.pi * df_hz / self.fs * applied_samples,
+            2.0 * np.pi))
+
+    def rebase_ratio(self, pending: np.ndarray, factor: float) -> np.ndarray:
+        """SCO re-lock splice: append a host resampler POST-stage whose
+        halo is seeded from the caller's pending (corrected OUTPUT)
+        buffer, the CorrectorChain.rebase_ratio mechanism, so the splice
+        stays sample-exact and nothing re-enters the input-side
+        correction.  The device stage is untouched (its ratio stays inside
+        the Farrow bank's fitted mu range no matter how many re-locks
+        accumulate); only the rare re-lock event pays host-resampler
+        cost."""
+        from ..rx import frontend as hostfe
+        tail = hostfe.StreamCorrector(fs=self.fs, taps=24)
+        tail.ratio = factor
+        tail._resampling = True
+        self.ratio *= factor
+        pending = np.asarray(pending, np.complex64)
+        n_out = int((len(pending) - tail.taps) / factor)
+        if n_out <= 0:
+            tail._halo = pending
+            self._post.append(tail)
+            return np.zeros(0, np.complex64)
+        out = hostfe._sinc_interp(pending, 0.0, factor, n_out, tail.taps)
+        adv = n_out * factor
+        drop = int(np.floor(adv))
+        tail._halo = pending[drop:]
+        tail._pos = adv - drop
+        self._post.append(tail)
+        return out

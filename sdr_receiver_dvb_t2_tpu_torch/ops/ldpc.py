@@ -14,8 +14,8 @@ import functools
 import numpy as np
 import torch
 
-from sdr_receiver_dvb_t2_tpu.dvbt2.ldpc import get_code
-from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate, FECFrame
+from ..dvbt2.ldpc import get_code
+from ..dvbt2.params import CodeRate, FECFrame
 
 from .._device import DeviceConst
 

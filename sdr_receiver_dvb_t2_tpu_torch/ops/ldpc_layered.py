@@ -1,5 +1,5 @@
 """Layered offset-min-sum QC-LDPC decoders: the ports of the TPU kernels
-K1-K4 of `sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py` and their front doors.
+K1-K5 of `sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py` and their front doors.
 
 | kernel | TPU kernel                             | front door here                      |
 |--------|----------------------------------------|--------------------------------------|
@@ -7,6 +7,7 @@ K1-K4 of `sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py` and their front doors.
 | K2     | `make_pallas_layered_vmem_adaptive`    | `make_adaptive_decoder_nb_fused`     |
 | K3     | `make_pallas_layered_vmem`             | `make_decoder_nb` (variant "vmem")   |
 | K4     | `make_pallas_layered`                  | `make_decoder_nb` (variant "hbm")    |
+| K5     | `make_decoder_nb_fused_io`'s own call  | `make_decoder_nb_fused_io`           |
 
 Two implementations of each:
 
@@ -27,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate, FECFrame
+from ..dvbt2.params import CodeRate, FECFrame
 
 from .. import _build
 from .._device import DeviceConst
@@ -234,8 +235,9 @@ def decode_plain(tab: QCTables, order: list, v: torch.Tensor, min_it,
 
 def decode_fixed_plain(tab: QCTables, v: torch.Tensor, iters: int,
                        variant: str) -> torch.Tensor:
-    """K3 ("vmem", bf16 c2v) or K4 ("hbm", f32 c2v): exactly `iters`
-    sweeps in natural layer order from f32 totals, no syndrome check.
+    """K3 and K5 ("vmem", bf16 c2v) or K4 ("hbm", f32 c2v): exactly
+    `iters` sweeps in natural layer order, no syndrome check; the totals
+    start from `v` widened to f32 (K5's caller has rounded it to bf16).
     -> bits (N, B) uint8."""
     ti, tp = _stage_nb(tab, v.float())
     c2v = torch.zeros((tab.q, tab.degmax + 2) + tp.shape[1:],
@@ -261,7 +263,7 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p] * 8 + [i] * 9 + [f, p]
             fn.restype = i
-        for name in ("ldpc_k3_decode", "ldpc_k4_decode"):
+        for name in ("ldpc_k3_decode", "ldpc_k4_decode", "ldpc_k5_decode"):
             fn = getattr(lib, name)
             fn.argtypes = [p] * 7 + [i] * 7 + [f, p]
             fn.restype = i
@@ -335,9 +337,10 @@ def _adaptive_launch(name, in_dtype, tab, tables, v, min_it, max_iters,
     return bits.t().contiguous(), ctl[1]
 
 
-def _fixed_launch(name, k_fn, tab, tables, v, iters, c2v_dtype):
+def _fixed_launch(name, k_fn, tab, tables, v, iters, c2v_dtype,
+                  in_dtype=torch.float32):
     lib, x, bits, ti, tp, c2v, ctl = _prepare(name, tab, tables, v,
-                                              torch.float32, c2v_dtype)
+                                              in_dtype, c2v_dtype)
     err = getattr(lib, k_fn)(
         x.data_ptr(), bits.data_ptr(), ti.data_ptr(), tp.data_ptr(),
         c2v.data_ptr(), ctl.data_ptr(), tables.data_ptr(), v.shape[1], tab.n,
@@ -390,8 +393,19 @@ def ldpc_layered_hbm_cuda(tab: QCTables, tables: torch.Tensor,
     return out
 
 
+def ldpc_layered_fused_io_cuda(tab: QCTables, tables: torch.Tensor,
+                               v: torch.Tensor, iters: int):
+    """K5: `iters` sweeps from (N, B) bf16 LLRs, bf16 c2v -> bits (N, B)
+    uint8."""
+    out = _fixed_launch("ldpc_layered_fused_io_cuda", "ldpc_k5_decode", tab,
+                        tables, v, iters, torch.bfloat16, torch.bfloat16)
+    ldpc_layered_fused_io_cuda.launches += 1
+    return out
+
+
 for _fn in (ldpc_layered_cuda, ldpc_layered_adaptive_cuda,
-            ldpc_layered_vmem_cuda, ldpc_layered_hbm_cuda):
+            ldpc_layered_vmem_cuda, ldpc_layered_hbm_cuda,
+            ldpc_layered_fused_io_cuda):
     _fn.launches = 0
 
 
@@ -579,3 +593,55 @@ def make_decoder_nb(frame: FECFrame, rate: CodeRate, iters: int, batch: int,
     K4 behind the (N, B) layout."""
     return FixedDecoderNB(frame, rate, make_core(frame, rate, iters, batch,
                                                  variant=variant), batch)
+
+
+class FusedIODecoderNB:
+    """fn(llrs_t (N, B)) -> bits (N, B) uint8: K5.  The LLRs are rounded
+    to bf16 BEFORE they become f32 totals (the TPU kernel stages them
+    through its bf16 c2v scratch), then `iters` layered sweeps run in
+    natural order with bf16 c2v and no syndrome check: K3's sweeps on
+    bf16-rounded input.  A CUDA tensor goes through the CUDA kernel, a CPU
+    tensor through the plain version."""
+
+    def __init__(self, frame: FECFrame, rate: CodeRate, iters: int,
+                 batch: int):
+        self.tab = qc_tables(frame, rate)
+        e = self.tab.degmax + 2
+        # the TPU kernel stages info and parity LLRs in rows of its
+        # (q, E, 360, B) c2v scratch; a code whose staging does not fit has
+        # no K5 there, and none here
+        if -(-self.tab.n_groups // e) + -(-self.tab.q // e) > self.tab.q:
+            raise ValueError("staging exceeds the c2v scratch for this code")
+        self.iters = iters
+        self.batch = batch
+        self._tables = DeviceConst(pack_tables(self.tab, range(self.tab.q)))
+
+    def _input(self, llrs_t: torch.Tensor) -> torch.Tensor:
+        if llrs_t.shape != (self.tab.n, self.batch):
+            raise ValueError(f"expected ({self.tab.n}, {self.batch}) LLRs, "
+                             f"got {tuple(llrs_t.shape)}")
+        return llrs_t.to(torch.bfloat16)
+
+    def __call__(self, llrs_t: torch.Tensor) -> torch.Tensor:
+        if llrs_t.device.type == "cpu":
+            return self.plain(llrs_t)
+        return self.kernel(llrs_t)
+
+    def kernel(self, llrs_t: torch.Tensor) -> torch.Tensor:
+        """The CUDA kernel (CUDA tensors only)."""
+        v = self._input(llrs_t)
+        return ldpc_layered_fused_io_cuda(
+            self.tab, self._tables.on(v.device), v, self.iters)
+
+    def plain(self, llrs_t: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch version on any device."""
+        return decode_fixed_plain(self.tab, self._input(llrs_t), self.iters,
+                                  "vmem")
+
+
+def make_decoder_nb_fused_io(frame: FECFrame, rate: CodeRate, iters: int,
+                             batch: int) -> FusedIODecoderNB:
+    """K5's front door.  Raises ValueError for a code whose LLR staging
+    does not fit the TPU kernel's c2v scratch, as the JAX function does.
+    Only bf16 exists (the JAX `dtype` override is not ported)."""
+    return FusedIODecoderNB(frame, rate, iters, batch)

@@ -16,9 +16,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from sdr_receiver_dvb_t2_tpu.dvbt2 import _etsi_tables as ET
-from sdr_receiver_dvb_t2_tpu.dvbt2.ldpc import _TABLE_KEY
-from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate, FECFrame
+from ..dvbt2 import _etsi_tables as ET
+from ..dvbt2.ldpc import _TABLE_KEY
+from ..dvbt2.params import CodeRate, FECFrame
 
 BIG = 1e9
 

@@ -3,8 +3,8 @@ on a `torch.device` (fused demod + LLRs + the layered LDPC kernels), and
 acquisition, L1 parsing, the BCH tail and TS reassembly on the host.
 
 Port of `sdr_receiver_dvb_t2_tpu/rx/device_receiver.py`.  It subclasses
-the JAX package's jax-free host `T2Receiver` (acquisition, SCO retiming and
-the frame loop of `receive()`), replaces the per-frame decode with the
+the port's host `T2Receiver` (`rx/receiver.py`: acquisition, SCO retiming
+and the frame loop of `receive()`), replaces the per-frame decode with the
 device path and adds the F-frame batched path the streaming loop calls
 (`decode_frames_batch`).  The device path is keyed by (mode, PLP,
 num_blocks) and built once per configuration.
@@ -19,11 +19,10 @@ the port keeps it so that it decodes every capture as the JAX receiver
 does.  On a CUDA device the layered decoders launch their CUDA kernels; on
 the CPU they run their plain PyTorch versions.
 
-Streaming front end: `wants_device_frontend` is False.  The streaming loop
-(`io/devices.StreamingReceiver`) builds the JAX `DeviceFrontendChain`
-whenever a receiver sets it, and the port's counterpart of that chain is
-not written yet; so the port's streaming corrects samples with the host
-`CorrectorChain`.
+Streaming front end: `wants_device_frontend` is True, so the streaming
+loop (`io/devices.StreamingReceiver`) corrects samples on this receiver's
+device with `ops/frontend_device.DeviceFrontendChain`, and keeps the host
+`CorrectorChain` only for a rate ratio that chain refuses.
 """
 from __future__ import annotations
 
@@ -32,13 +31,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from sdr_receiver_dvb_t2_tpu.dvbt2 import bbframe, inband, l1 as l1mod
-from sdr_receiver_dvb_t2_tpu.dvbt2.params import (PLPParams, SAMPLE_RATE,
+from ..dvbt2 import bbframe, inband, l1 as l1mod
+from ..dvbt2.params import (PLPParams, SAMPLE_RATE,
                                                   T2Params)
-from sdr_receiver_dvb_t2_tpu.ops import fec_device
-from sdr_receiver_dvb_t2_tpu.rx import decode as rxdecode
-from sdr_receiver_dvb_t2_tpu.rx import p1_detect as rxp1
-from sdr_receiver_dvb_t2_tpu.rx.receiver import T2Receiver
+from ..ops import fec_device
+from ..rx import decode as rxdecode
+from ..rx import p1_detect as rxp1
+from ..rx.receiver import T2Receiver
 
 from ..ops import ldpc as fldpc
 from ..ops import ldpc_layered as qldpc
@@ -49,15 +48,13 @@ class DeviceT2Receiver(T2Receiver):
     def __init__(self, plp_filter: int | None = None,
                  ldpc_max_iters: int = 24, adaptive: bool = True,
                  stream_batch: int = 4, profile: str = "base",
-                 fs: float | None = None, *, device):
+                 fs: float | None = None, *, device="cuda"):
         super().__init__(plp_filter=plp_filter, profile=profile,
                          fs=SAMPLE_RATE if fs is None else fs)
         self.device = torch.device(device)
         self.ldpc_max_iters = ldpc_max_iters
         self.adaptive = adaptive
-        # the streaming loop corrects samples with the host chain (see the
-        # module docstring)
-        self.wants_device_frontend = False
+        self.wants_device_frontend = True
         # F-frame superstep size for the streaming loop: it calls
         # decode_frames_batch whenever this many tracked frames are pending
         self.stream_batch = stream_batch

@@ -30,11 +30,11 @@ import functools
 import numpy as np
 import torch
 
-from sdr_receiver_dvb_t2_tpu.dvbt2 import interleavers, l1 as l1mod, tables
-from sdr_receiver_dvb_t2_tpu.dvbt2.params import PLPParams, T2Params
-from sdr_receiver_dvb_t2_tpu.rx import demod as npdemod
-from sdr_receiver_dvb_t2_tpu.rx.decode import _ti_inverse_perm
-from sdr_receiver_dvb_t2_tpu.tx.frame import ti_blocks_split
+from ..dvbt2 import interleavers, l1 as l1mod, tables
+from ..dvbt2.params import PLPParams, T2Params
+from ..rx import demod as npdemod
+from ..rx.decode import _ti_inverse_perm
+from ..tx.frame import ti_blocks_split
 
 from .._device import DeviceConst
 

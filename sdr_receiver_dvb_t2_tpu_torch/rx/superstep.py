@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdr_receiver_dvb_t2_tpu.dvbt2.params import PLPParams, T2Params
+from ..dvbt2.params import PLPParams, T2Params
 
 from .._device import DeviceConst
 from ..ops import fec_device

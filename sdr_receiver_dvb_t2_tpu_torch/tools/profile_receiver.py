@@ -37,8 +37,7 @@ class StageTimer:
     module; a device stage is bracketed by `torch.cuda.synchronize()`."""
 
     def __init__(self):
-        self.seconds = collections.defaultdict(float)
-        self.calls = collections.Counter()
+        self.times = collections.defaultdict(list)    # tag -> s per call
         self._wrapped = []
 
     def wrap(self, owner, name: str, tag: str, device: bool) -> None:
@@ -53,8 +52,7 @@ class StageTimer:
             finally:
                 if device:
                     torch.cuda.synchronize()
-                self.seconds[tag] += time.perf_counter() - t0
-                self.calls[tag] += 1
+                self.times[tag].append(time.perf_counter() - t0)
         setattr(owner, name, timed)
         self._wrapped.append((owner, name, inner))
 
@@ -64,22 +62,25 @@ class StageTimer:
         self._wrapped.clear()
 
     def reset(self) -> None:
-        self.seconds.clear()
-        self.calls.clear()
+        self.times.clear()
 
     def report(self) -> None:
-        for tag in sorted(self.seconds, key=lambda t: -self.seconds[t]):
-            n = self.calls[tag]
-            print(f"  {tag:34s} {1e3 * self.seconds[tag] / n:9.3f} ms/call "
-                  f"x{n:<3d} total {1e3 * self.seconds[tag]:9.2f} ms")
+        """Mean per call, then every call in order: a first call carries
+        what is built or loaded once."""
+        for tag in sorted(self.times, key=lambda t: -sum(self.times[t])):
+            ts = self.times[tag]
+            print(f"  {tag:34s} {1e3 * sum(ts) / len(ts):9.3f} ms/call "
+                  f"x{len(ts):<3d} total {1e3 * sum(ts):9.2f} ms; calls "
+                  + " ".join(f"{1e3 * t:.2f}" for t in ts))
 
 
 def wrap_stages(timer: StageTimer) -> None:
     """The receiver's stages: device work in the port, host work in the
-    JAX package's jax-free modules that the receiver calls."""
-    from sdr_receiver_dvb_t2_tpu.rx import frontend as hostfe
-    from sdr_receiver_dvb_t2_tpu_torch.rx import device_receiver as tdr
-    from sdr_receiver_dvb_t2_tpu_torch.rx import fusedpath as tfp
+    port's host modules that the receiver calls."""
+    from ..ops import frontend_device as fdev
+    from ..rx import device_receiver as tdr
+    from ..rx import frontend as hostfe
+    from ..rx import fusedpath as tfp
     for owner, name, tag, device in (
             (tfp.FusedFrameDemod, "__call__", "demod (device)", True),
             (tfp.FusedPLPPath, "__call__", "PLP LLRs (device)", True),
@@ -95,6 +96,8 @@ def wrap_stages(timer: StageTimer) -> None:
             (tdr.bbframe, "scramble", "descramble (host)", False),
             (tdr.bbframe.TSAssembler, "push_frames", "TS assembly (host)",
              False),
+            (fdev.DeviceFrontendChain, "process", "device front end",
+             True),
             (hostfe.CorrectorChain, "process", "host front end", False),
             (tdr.DeviceT2Receiver, "_decode_frame", "_decode_frame in all",
              False),
@@ -110,11 +113,10 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sdr_receiver_dvb_t2_tpu.io import devices
-    from sdr_receiver_dvb_t2_tpu.tx.modulator import apply_cfo, awgn
-    from sdr_receiver_dvb_t2_tpu_torch.rx.device_receiver import \
-        DeviceT2Receiver
-    from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen as bg
+    from ..io import devices
+    from ..tx.modulator import apply_cfo, awgn
+    from ..rx.device_receiver import DeviceT2Receiver
+    from ..utils import benchgen as bg
 
     p, plp = bg.headline_mode(128)
     ts, frames, _ = bg.modulate(p, plp, FRAMES, seed=SEED)
@@ -162,7 +164,7 @@ def main() -> int:
             ts_sink=got.append)
     wall = time.perf_counter() - t0
     out = np.concatenate(got) if got else np.zeros(0, np.uint8)
-    print(f"[streaming stream_batch=2] {wall:.3f} s, frames "
+    print(f"[streaming stream_batch=2, {st.frontend}] {wall:.3f} s, frames "
           f"{st.frames_decoded}, supersteps {rx.batch_supersteps}, TS "
           f"bit-exact {np.array_equal(out, ts[:len(out)])}")
     for name, stage in st.metrics.stages.items():
@@ -170,8 +172,9 @@ def main() -> int:
               f"{1e3 * stage.seconds:9.2f} ms")
     timer.report()
     timer.unwrap()
-    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-    print(f"jax modules loaded: {jax_mods[:5]}")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "sdr_receiver_dvb_t2_tpu"))
+    print(f"jax or JAX-package modules loaded: {foreign[:5]}")
     return 0
 
 

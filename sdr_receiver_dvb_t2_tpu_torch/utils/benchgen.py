@@ -3,7 +3,7 @@
 What the repository's bench does around its timed superstep, for the
 port: the headline mode (32K FFT, GI 1/128, PP7 extended carriers, 59 data
 symbols, 256QAM C2/3 NORMAL, B=128), frames modulated on the host by the
-JAX package's jax-free `T2Modulator`, impaired on the device by the port's
+port's `T2Modulator` (`tx/modulator.py`), impaired on the device by the port's
 impairer with the bench's constants, the tracking state estimated by the
 product's acquisition (`T2Receiver.refine_acquire`) on a 2-frame capture as
 the bench's `estimate_tracking` does, and the TS reassembled by
@@ -15,13 +15,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdr_receiver_dvb_t2_tpu.dvbt2 import bbframe
-from sdr_receiver_dvb_t2_tpu.dvbt2 import ldpc as ldpcmod
-from sdr_receiver_dvb_t2_tpu.dvbt2.params import (
+from ..dvbt2 import bbframe
+from ..dvbt2 import ldpc as ldpcmod
+from ..dvbt2.params import (
     CodeRate, Constellation, FECFrame, FFTMode, GuardInterval, PilotPattern,
     PLPParams, T2Params)
-from sdr_receiver_dvb_t2_tpu.rx.receiver import T2Receiver
-from sdr_receiver_dvb_t2_tpu.tx.modulator import T2Modulator
+from ..rx.receiver import T2Receiver
+from ..tx.modulator import T2Modulator
 
 from ..ops import frontend_device as fdev
 from ..rx.superstep import HALF

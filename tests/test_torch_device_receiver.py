@@ -19,12 +19,15 @@ import torch
 from sdr_receiver_dvb_t2_tpu.dvbt2.params import (
     CodeRate, Constellation, FECFrame, FFTMode, GuardInterval, PilotPattern,
     PLPParams, Preamble, T2Params)
-from sdr_receiver_dvb_t2_tpu.io import devices
 from sdr_receiver_dvb_t2_tpu.rx import device_receiver as jdr
 from sdr_receiver_dvb_t2_tpu.tx.modulator import T2Modulator, apply_cfo, awgn
+from sdr_receiver_dvb_t2_tpu_torch.io import devices
 from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc as tldpc
 from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as tl
 from sdr_receiver_dvb_t2_tpu_torch.rx import device_receiver as tdr
+from sdr_receiver_dvb_t2_tpu_torch.tx import modulator as tmod
+from sdr_receiver_dvb_t2_tpu_torch.utils.reference import (
+    params_from_reference)
 
 from tests.test_e2e import make_ts, small_config
 
@@ -166,11 +169,13 @@ def test_streaming_batched_path():
     """The streaming loop with the port's receiver (the --stream
     --device-path route): after the frames that seed the noise estimate,
     frames decode in F-frame MultiFramePath supersteps; the TS is
-    bit-exact.  The port corrects samples with the host chain."""
+    bit-exact.  At the elementary rate the samples go through the
+    port's device front-end chain on the receiver's device."""
     flat, samples = _stream_waveform(8)
     rx = _port(stream_batch=3)
-    assert rx.wants_device_frontend is False
+    assert rx.wants_device_frontend is True
     st, ts = _stream(samples, rx)
+    assert st.frontend == "DeviceFrontendChain"
     assert st.frames_decoded == 8
     assert st.frames_skipped == 0
     assert rx.batch_supersteps >= 1
@@ -183,11 +188,11 @@ def test_streaming_run_never_imports_jax():
         import sys
         import numpy as np
         import torch
-        from sdr_receiver_dvb_t2_tpu.dvbt2.params import (
+        from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import (
             CodeRate, Constellation, FECFrame, FFTMode, GuardInterval,
             PilotPattern, PLPParams, T2Params)
-        from sdr_receiver_dvb_t2_tpu.io import devices
-        from sdr_receiver_dvb_t2_tpu.tx.modulator import T2Modulator
+        from sdr_receiver_dvb_t2_tpu_torch.io import devices
+        from sdr_receiver_dvb_t2_tpu_torch.tx.modulator import T2Modulator
         from sdr_receiver_dvb_t2_tpu_torch.rx.device_receiver import (
             DeviceT2Receiver)
         torch.set_num_threads(1)
@@ -212,7 +217,8 @@ def test_streaming_run_never_imports_jax():
         out = np.concatenate(got)
         ok = np.array_equal(out, ts.reshape(-1)[:len(out)]) and len(out)
         print(st.frames_decoded, rx.batch_supersteps, bool(ok),
-              sorted(m for m in sys.modules if m.split(".")[0] == "jax"))
+              sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "sdr_receiver_dvb_t2_tpu")))
     """)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=600)
@@ -235,12 +241,13 @@ def test_get_decoder_follows_jax_rule():
     ]
     for frame, rate, batch, adaptive, kind, variant in cases:
         plp = PLPParams(rate=rate, fec_frame=frame)
+        mine_plp = params_from_reference(plp)
         rx = _port(adaptive=adaptive, ldpc_max_iters=24)
-        got_kind, dec = rx._get_decoder(plp, batch)
+        got_kind, dec = rx._get_decoder(mine_plp, batch)
         ref_kind, _ = jdr.DeviceT2Receiver(
             adaptive=adaptive, ldpc_max_iters=24)._get_decoder(plp, batch)
         assert got_kind == ref_kind == kind
-        assert rx._get_decoder(plp, batch)[1] is dec       # built once
+        assert rx._get_decoder(mine_plp, batch)[1] is dec  # built once
         if kind == "nb_adaptive":
             assert isinstance(dec, tl.AdaptiveDecoderNB)
             assert dec.in_dtype == torch.float32           # K2, not K1
@@ -265,10 +272,11 @@ def test_layered_routes_at_128_blocks(adaptive, monkeypatch):
     plp = PLPParams(constellation=Constellation.QAM256, rate=CodeRate.C2_3,
                     fec_frame=FECFrame.SHORT, rotated=True,
                     num_blocks_max=128, time_il_length=1)
-    mod = T2Modulator(p, [plp])
+    p, plp = params_from_reference(p), params_from_reference(plp)
+    mod = tmod.T2Modulator(p, [plp])
     assert mod.blocks_per_frame(plp) == 128
     ts = make_ts(mod.packets_needed(2) + 4, seed=12).reshape(-1)
-    y = awgn(mod.modulate(ts, 2).samples, 24, seed=12)
+    y = tmod.awgn(mod.modulate(ts, 2).samples, 24, seed=12)
     calls = []
     for cls in (tl.AdaptiveDecoderNB, tl.FixedDecoderNB):
         plain = cls.plain

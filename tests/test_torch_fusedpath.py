@@ -19,6 +19,7 @@ from sdr_receiver_dvb_t2_tpu.tx.modulator import T2Modulator
 from sdr_receiver_dvb_t2_tpu_torch.ops.ldpc_layered import \
     make_adaptive_decoder_nb_fused_io
 from sdr_receiver_dvb_t2_tpu_torch.rx import fusedpath as tfp
+from sdr_receiver_dvb_t2_tpu_torch.utils.reference import from_reference as R
 
 torch.set_num_threads(1)
 
@@ -65,7 +66,7 @@ def test_interp_stencil_equals_jax():
 
 def test_class_tables_equal_jax():
     p, plp = _setup()
-    ref, mine = jfp.FusedFrameDemod(p), tfp.FusedFrameDemod(p)
+    ref, mine = jfp.FusedFrameDemod(p), tfp.FusedFrameDemod(R(p))
     np.testing.assert_array_equal(mine.layout, ref.layout)
     np.testing.assert_array_equal(mine.sym_order, ref.sym_order)
     assert mine.total_cells == ref.total_cells
@@ -78,7 +79,7 @@ def test_class_tables_equal_jax():
                         b.stencil + b.comp_stencil):
             np.testing.assert_array_equal(x, y)
     rp = jfp.FusedPLPPath(p, plp, NB, ref)
-    mp = tfp.FusedPLPPath(p, plp, NB, mine)
+    mp = tfp.FusedPLPPath(R(p), R(plp), NB, mine)
     np.testing.assert_array_equal(mp.comp, rp.comp)
     np.testing.assert_array_equal(mp.bit_inv, rp.bit_inv)
     assert mp.rot == rp.rot
@@ -87,7 +88,7 @@ def test_class_tables_equal_jax():
 def test_llrs_f32_equal_jax():
     p, plp = _setup()
     ref = jfp.MultiFramePath(p, plp, NB, F, emit_evm=True)
-    mine = tfp.MultiFramePath(p, plp, NB, F, emit_evm=True)
+    mine = tfp.MultiFramePath(R(p), R(plp), NB, F, emit_evm=True)
     sr, si = _symbols(p, plp, mine.demod.sym_order)
     llr_j, evm_j = ref._fn_syms(jnp.asarray(sr), jnp.asarray(si),
                                 jnp.float32(INV_NVAR))
@@ -108,7 +109,7 @@ def test_llrs_f32_equal_jax():
 def test_llrs_bf16_decode_equal_jax():
     p, plp = _setup()
     ref = jfp.MultiFramePath(p, plp, NB, F, llr_dtype=jnp.bfloat16)
-    mine = tfp.MultiFramePath(p, plp, NB, F, llr_dtype=torch.bfloat16)
+    mine = tfp.MultiFramePath(R(p), R(plp), NB, F, llr_dtype=torch.bfloat16)
     sr, si = _symbols(p, plp, mine.demod.sym_order)
     llr_j = ref._fn_syms(jnp.asarray(sr, jnp.bfloat16),
                          jnp.asarray(si, jnp.bfloat16),
@@ -121,7 +122,7 @@ def test_llrs_bf16_decode_equal_jax():
     # across it (~0.2% at 12 dB); the decoder removes the difference
     agree = (torch.sign(llr_t.float()) == torch.sign(llr_j)).float().mean()
     assert agree > 0.99
-    dec = make_adaptive_decoder_nb_fused_io(plp.fec_frame, plp.rate,
+    dec = make_adaptive_decoder_nb_fused_io(R(plp.fec_frame), R(plp.rate),
                                             max_iters=12, check_every=1,
                                             layer_order="reversed")
     for f in range(F):

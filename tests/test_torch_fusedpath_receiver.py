@@ -21,6 +21,7 @@ from sdr_receiver_dvb_t2_tpu.rx import fusedpath as jfp
 from sdr_receiver_dvb_t2_tpu.rx import p1_detect as rxp1
 from sdr_receiver_dvb_t2_tpu.tx.modulator import T2Modulator, awgn
 from sdr_receiver_dvb_t2_tpu_torch.rx import fusedpath as tfp
+from sdr_receiver_dvb_t2_tpu_torch.utils.reference import from_reference as R
 
 from tests.test_e2e import make_ts
 
@@ -96,6 +97,11 @@ def _specs(plps, out):
     return specs, l1mod.L1_PRE_CELLS + out.l1pre.l1_post_size
 
 
+def _port_specs(specs):
+    """The specs with the port's own PLPParams."""
+    return [R(tuple(spec)) for spec in specs]
+
+
 def _close(got, ref, what):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     assert got.shape == ref.shape, what
@@ -114,7 +120,7 @@ def _llrs_close(got, ref, what):
 @pytest.mark.parametrize("miso", [False, True], ids=["siso", "miso"])
 def test_demod_tables_equal_jax(miso):
     p = _mode(miso)
-    ref, mine = jfp.FusedFrameDemod(p), tfp.FusedFrameDemod(p)
+    ref, mine = jfp.FusedFrameDemod(p), tfp.FusedFrameDemod(R(p))
     np.testing.assert_array_equal(mine.layout, ref.layout)
     assert len(mine.classes) == len(ref.classes)
     for a, b in zip(mine.classes, ref.classes):
@@ -148,9 +154,10 @@ def test_frame_entry_equals_jax(miso):
     y, _ = _capture(p, plps, seed=8)
     body2 = _bodies(p, y)[1]
     ref = np.asarray(jfp.FusedFrameDemod(p)._fn(jnp.asarray(body2)))
-    got = tfp.FusedFrameDemod(p)(torch.from_numpy(body2))
+    got = tfp.FusedFrameDemod(R(p))(torch.from_numpy(body2))
     assert got.dtype == torch.float32
-    assert got.shape == ref.shape == (tfp.get_fused_demod(p).total_cells, 2)
+    assert got.shape == ref.shape == (
+        tfp.get_fused_demod(R(p)).total_cells, 2)
     _close(got.numpy(), ref, "equalized cells")
 
 
@@ -167,7 +174,7 @@ def test_plp_paths_equal_jax():
         ref = jfp.FusedPLPPath(p, plp, nb, jfp.get_fused_demod(p),
                                plp_start_cell=sc, l1_cells=l1_size,
                                sub_slices=ss, slice_interval=iv)
-        mine = tfp.FusedPLPPath(p, plp, nb, tfp.get_fused_demod(p),
+        mine = tfp.FusedPLPPath(R(p), R(plp), nb, tfp.get_fused_demod(R(p)),
                                 plp_start_cell=sc, l1_cells=l1_size,
                                 sub_slices=ss, slice_interval=iv)
         np.testing.assert_array_equal(mine.comp, ref.comp)
@@ -188,7 +195,7 @@ def test_plp_path_rotated_equals_jax():
     flat2 = np.array(jfp.get_fused_demod(p)._fn(
         jnp.asarray(_bodies(p, y)[0])))
     ref = jfp.get_fused_plp_path(p, plp, 3)
-    mine = tfp.get_fused_plp_path(p, plp, 3)
+    mine = tfp.get_fused_plp_path(R(p), R(plp), 3)
     _llrs_close(mine(torch.from_numpy(flat2), INV_NVAR).numpy(),
                 np.asarray(ref._fn(jnp.asarray(flat2),
                                    jnp.float32(INV_NVAR))), "rotated")
@@ -203,7 +210,8 @@ def test_multiframe_bodies_three_plps_l1_evm_equal_jax():
               plp_specs=specs)
     llr_j, l1_j, evm_j = jfp.MultiFramePath(p, **kw)._fn(
         jnp.asarray(bodies), jnp.float32(INV_NVAR))
-    mine = tfp.MultiFramePath(p, **kw)
+    mine = tfp.MultiFramePath(
+        R(p), **{**kw, "plp_specs": _port_specs(specs)})
     llr_t, l1_t, evm_t = mine(torch.from_numpy(bodies), INV_NVAR)
     assert isinstance(llr_t, tuple) and len(llr_t) == 3
     for (plp, nb, *_), a, b in zip(specs, llr_t, llr_j):
@@ -228,7 +236,7 @@ def test_multiframe_miso_equals_jax():
     llr_j, evm_j = jfp.MultiFramePath(p, plp, 3, n_frames=F,
                                       emit_evm=True)._fn(
         jnp.asarray(bodies), jnp.float32(INV_NVAR))
-    llr_t, evm_t = tfp.MultiFramePath(p, plp, 3, n_frames=F,
+    llr_t, evm_t = tfp.MultiFramePath(R(p), R(plp), 3, n_frames=F,
                                       emit_evm=True)(
         torch.from_numpy(bodies), INV_NVAR)
     _llrs_close(llr_t.numpy(), np.asarray(llr_j), "MISO LLRs")
@@ -248,9 +256,9 @@ def test_multiframe_bf16_hard_decisions_agree_with_jax():
         l1_cells=l1_size, plp_specs=specs)._fn(jnp.asarray(bodies),
                                                 jnp.float32(INV_NVAR))
     llr_t, _ = tfp.MultiFramePath(
-        p, n_frames=F, llr_dtype=torch.bfloat16, emit_evm=True,
-        l1_cells=l1_size, plp_specs=specs)(torch.from_numpy(bodies),
-                                            INV_NVAR)
+        R(p), n_frames=F, llr_dtype=torch.bfloat16, emit_evm=True,
+        l1_cells=l1_size, plp_specs=_port_specs(specs))(
+            torch.from_numpy(bodies), INV_NVAR)
     for a, b in zip(llr_t, llr_j):
         assert a.dtype == torch.bfloat16
         ref = np.asarray(b.astype(jnp.float32))

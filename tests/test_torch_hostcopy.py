@@ -1,0 +1,296 @@
+"""The port's own host code (sdr_receiver_dvb_t2_tpu_torch/{dvbt2,native,
+tx,rx,utils,io}) against the JAX package's modules it was copied from.
+
+(a) Drift: each copied file's text equals its source's once the one
+    machine path in the docstrings is normalised; the files that differ on
+    purpose carry their differences here, by name, as exact substitutions.
+(b) `utils/reference.params_from_reference` carries every mode the tests
+    use across the packages, by field and enum name.
+(c) Same seed, same output: the port's `T2Modulator` gives the JAX
+    package's samples exactly, and the port's host `T2Receiver` the same TS
+    bytes and statistics.
+"""
+import dataclasses
+import inspect
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+import sdr_receiver_dvb_t2_tpu as jpkg
+import sdr_receiver_dvb_t2_tpu_torch as tpkg
+from sdr_receiver_dvb_t2_tpu.dvbt2 import params as jparams
+from sdr_receiver_dvb_t2_tpu.ops import fec_device as jfec
+from sdr_receiver_dvb_t2_tpu.rx import receiver as jrx
+from sdr_receiver_dvb_t2_tpu.tx import modulator as jmod
+from sdr_receiver_dvb_t2_tpu_torch.dvbt2 import params as tparams
+from sdr_receiver_dvb_t2_tpu_torch.ops import fec_device as tfec
+from sdr_receiver_dvb_t2_tpu_torch.rx import receiver as trx
+from sdr_receiver_dvb_t2_tpu_torch.tx import modulator as tmod
+from sdr_receiver_dvb_t2_tpu_torch.utils.reference import (
+    from_reference, params_from_reference)
+
+from tests.test_e2e import make_ts, small_config
+
+JROOT = pathlib.Path(jpkg.__file__).resolve().parent
+TROOT = pathlib.Path(tpkg.__file__).resolve().parent
+
+COPIED = [
+    "dvbt2/__init__.py", "dvbt2/params.py", "dvbt2/_etsi_tables.py",
+    "dvbt2/ldpc.py", "dvbt2/bch.py", "dvbt2/bbframe.py",
+    "dvbt2/interleavers.py", "dvbt2/tables.py", "dvbt2/l1.py",
+    "dvbt2/inband.py",
+    "native/__init__.py", "native/ingest.cpp", "native/build.sh",
+    "tx/__init__.py", "tx/ofdm.py", "tx/fec.py", "tx/frame.py",
+    "tx/modulator.py",
+    "rx/demod.py", "rx/decode.py", "rx/p1_detect.py", "rx/frontend.py",
+    "rx/receiver.py",
+    "utils/loops.py", "utils/metrics.py", "utils/checkpoint.py",
+    "io/__init__.py", "io/iq.py", "io/ts_io.py", "io/devices.py",
+    "io/vendor.py", "io/net.py", "io/control.py",
+]
+
+# The deliberate differences: (text in the JAX package, text in the port).
+DELIBERATE = {
+    # the streaming loop builds the port's chain on the receiver's device
+    "io/devices.py": [
+        ("            # the device receive path corrects samples with the "
+         "SAME\n            # jitted stages the bench measures "
+         "(ops/frontend_device);\n",
+         "            # the device receive path corrects samples on the "
+         "receiver's\n            # torch device (ops/frontend_device);\n"),
+        # only the refused ratio falls back to the host chain, and says so;
+        # the chain that ran stays readable on the receiver
+        ("from __future__ import annotations\n\nfrom dataclasses",
+         "from __future__ import annotations\n\nimport logging\n"
+         "from dataclasses"),
+        ('''            try:
+                from ..ops.frontend_device import DeviceFrontendChain
+                chain = DeviceFrontendChain(in_rate=dev.sample_rate,
+                                            out_rate=fs,
+                                            block_len=block_len)
+            except ValueError:
+                chain = None
+''', '''            from ..ops.frontend_device import (DeviceFrontendChain,
+                                               UnsupportedRatio)
+            try:
+                chain = DeviceFrontendChain(in_rate=dev.sample_rate,
+                                            out_rate=fs,
+                                            block_len=block_len,
+                                            device=self.receiver.device)
+            except UnsupportedRatio as e:
+                # only the refused ratio: any other error propagates
+                logging.getLogger(__name__).warning(
+                    "sample correction runs on the host: %s", e)
+                chain = None
+'''),
+        ("        st.frontend = type(chain).__name__\n",
+         "        st.frontend = type(chain).__name__\n"
+         "        self.chain = chain      # the chain of the newest run, "
+         "for callers\n"),
+    ],
+    # PILoopFilter.scan_fn, the one JAX function of the module, is gone
+    "utils/loops.py": [
+        ("averager, written as pure (state, x) -> (state, y) steps usable "
+         "under\n`lax.scan` on device or plain Python on host.",
+         "averager, written as pure (state, x) -> (state, y) steps in plain "
+         "Python on\nthe host."),
+        ('''    def scan_fn(self):
+        """(integ, err) -> (integ', out) for jax.lax.scan."""
+        kp, ki, cl = self.kp, self.ki, self.clamp
+
+        def f(integ, err):
+            import jax.numpy as jnp
+            integ = jnp.clip(integ + ki * err, -cl, cl)
+            return integ, kp * err + integ
+        return f
+
+''', ""),
+    ],
+    # the device trace is a torch.profiler context
+    "utils/metrics.py": [
+        ("jax.profiler integration for device traces",
+         "torch.profiler integration for device traces"),
+        ('''    """jax.profiler trace around a block (view with TensorBoard/xprof)."""
+    import jax
+    jax.profiler.start_trace(logdir)
+    try:
+        yield
+    finally:
+        jax.profiler.stop_trace()
+''', '''    """torch.profiler trace (CPU and, where there is one, the CUDA device)
+    around a block, written to `logdir` for TensorBoard."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
+        yield
+'''),
+    ],
+    # the library is compiled under a temporary name and renamed, so that
+    # concurrent test workers never load a half-written file
+    "native/build.sh": [
+        ("${CXX} ${FLAGS} ingest.cpp -o libt2ingest.so\n",
+         '''# compile under a temporary name and rename: a concurrent process never
+# loads a half-written library
+TMP="libt2ingest.so.$$.tmp"
+trap 'rm -f "$TMP"' EXIT
+${CXX} ${FLAGS} ingest.cpp -o "$TMP"
+mv -f "$TMP" libt2ingest.so
+'''),
+    ],
+}
+
+
+def _normalised(text: str) -> str:
+    """Docstrings name the reference receiver's sources by an absolute
+    path in one package and a relative one in the other."""
+    return re.sub(r"/\w+/reference/", "reference/", text)
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_has_not_drifted(rel):
+    src = _normalised((JROOT / rel).read_text())
+    for old, new in DELIBERATE.get(rel, []):
+        assert src.count(old) == 1, f"{rel}: {old[:40]!r} not found once"
+        src = src.replace(old, new)
+    assert _normalised((TROOT / rel).read_text()) == src
+
+
+def test_copies_import_only_their_own_package():
+    """No import line of a copied module names another package of this
+    repository or jax (relative imports resolve under the port's root)."""
+    for rel in COPIED:
+        if not rel.endswith(".py"):
+            continue
+        for line in (TROOT / rel).read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                assert not re.match(
+                    r"(import|from)\s+(jax|jaxlib|sdr_receiver_dvb_t2_tpu)\b",
+                    s), (rel, line)
+
+
+@pytest.mark.parametrize("name", ["remainder_matrix", "_scramble_prbs",
+                                  "bch_correct_batch", "bch_check_host"])
+def test_fec_device_host_functions_are_the_jax_package_s(name):
+    """ops/fec_device.py is a port, not a copy, but its NumPy host
+    functions are taken over as they are."""
+    a, b = getattr(jfec, name), getattr(tfec, name)
+    a, b = getattr(a, "__wrapped__", a), getattr(b, "__wrapped__", b)
+    assert inspect.getsource(a) == inspect.getsource(b)
+
+
+def _modes():
+    P, L = jparams.T2Params, jparams.PLPParams
+    e = jparams
+    p8, plp8 = small_config()
+    _, plp8n = small_config(rotated=False)
+    miso = P(fft_mode=e.FFTMode.FFT_8K, guard=e.GuardInterval.GI_1_32,
+             pilot_pattern=e.PilotPattern.PP1, extended_carrier=False,
+             n_data=9, miso=True, preamble=e.Preamble.T2_MISO)
+    headline = P(fft_mode=e.FFTMode.FFT_32K, guard=e.GuardInterval.GI_1_128,
+                 pilot_pattern=e.PilotPattern.PP7, extended_carrier=True,
+                 n_data=59)
+    fef = dataclasses.replace(p8, fef=(0, 4096, 2),
+                              bandwidth=e.Bandwidth.BW_1_7)
+    type2 = L(plp_id=2, constellation=e.Constellation.QPSK,
+              rate=e.CodeRate.C1_2, fec_frame=e.FECFrame.SHORT,
+              rotated=False, num_blocks_max=2, time_il_length=1, plp_type=2,
+              sub_slices=3)
+    big = L(constellation=e.Constellation.QAM256, rate=e.CodeRate.C2_3,
+            fec_frame=e.FECFrame.NORMAL, num_blocks_max=128,
+            time_il_length=1, in_band_a=True)
+    return {"8k": p8, "miso": miso, "headline": headline, "fef-1.7MHz": fef,
+            "plp-16qam": plp8, "plp-unrotated": plp8n, "plp-type2": type2,
+            "plp-256qam-normal": big}
+
+
+@pytest.mark.parametrize("mode", sorted(_modes()))
+def test_params_from_reference_round_trip(mode):
+    ref = _modes()[mode]
+    mine = params_from_reference(ref)
+    own = getattr(tparams, type(ref).__name__)
+    assert type(mine) is own and type(ref) is not own
+    for f in dataclasses.fields(ref):
+        a, b = getattr(ref, f.name), getattr(mine, f.name)
+        if isinstance(a, jparams.enum.Enum):
+            assert type(b) is getattr(tparams, type(a).__name__)
+            assert b.name == a.name and b.value == a.value
+        else:
+            assert a == b and type(a) is type(b)
+    # the same object built from the port's own classes, and hashable
+    direct = own(**{f.name: from_reference(getattr(ref, f.name))
+                    for f in dataclasses.fields(ref)})
+    assert mine == direct and hash(mine) == hash(direct)
+    assert params_from_reference(mine) is mine       # already the port's
+    # derived quantities agree
+    if isinstance(ref, jparams.T2Params):
+        assert mine.frame_samples == ref.frame_samples
+        assert mine.symbol_size == ref.symbol_size
+    else:
+        assert dataclasses.asdict(mine.fec).keys() \
+            == dataclasses.asdict(ref.fec).keys()
+        assert mine.fec.k_bch == ref.fec.k_bch
+
+
+def test_params_from_reference_refuses_what_it_cannot_carry():
+    with pytest.raises(TypeError):
+        params_from_reference(3)
+
+    @dataclasses.dataclass
+    class Unknown:
+        x: int = 0
+    with pytest.raises(TypeError):
+        params_from_reference(Unknown())
+    with pytest.raises(TypeError):
+        from_reference(np.zeros(2))
+
+
+def _loopback_inputs(n_frames=2, seed=0):
+    p, plp = small_config()
+    ts = make_ts(jmod.T2Modulator(p, [plp]).packets_needed(n_frames) + 4,
+                 seed=seed).reshape(-1)
+    return p, plp, ts
+
+
+def test_modulator_output_equals_jax_package():
+    p, plp, ts = _loopback_inputs()
+    ref = jmod.T2Modulator(p, [plp]).modulate(ts, 2)
+    mod = tmod.T2Modulator(params_from_reference(p),
+                           [params_from_reference(plp)])
+    mine = mod.modulate(ts, 2)
+    assert mine.samples.dtype == ref.samples.dtype
+    np.testing.assert_array_equal(mine.samples, ref.samples)
+    assert len(mine.frames) == len(ref.frames) == 2
+    for a, b in zip(mine.frames, ref.frames):
+        np.testing.assert_array_equal(a, b)
+    # the channel helpers draw the same noise
+    np.testing.assert_array_equal(tmod.awgn(mine.samples, 20, seed=1),
+                                  jmod.awgn(ref.samples, 20, seed=1))
+    np.testing.assert_array_equal(tmod.apply_cfo(mine.samples, 900.0),
+                                  jmod.apply_cfo(ref.samples, 900.0))
+
+
+@pytest.mark.parametrize("case", ["noiseless", "awgn-cfo"])
+def test_host_receiver_equals_jax_package(case):
+    p, plp, ts = _loopback_inputs(seed=3)
+    y = jmod.T2Modulator(p, [plp]).modulate(ts, 2).samples
+    if case == "awgn-cfo":
+        y = jmod.awgn(jmod.apply_cfo(y, 1500.0), 18, seed=4)
+    ref = jrx.T2Receiver().receive(y)
+    mine = trx.T2Receiver().receive(y)
+    np.testing.assert_array_equal(mine.ts, ref.ts)
+    assert len(mine.ts) > 0
+    np.testing.assert_array_equal(mine.ts, ts[:len(mine.ts)])
+    a, b = mine.stats, ref.stats
+    assert (a.frames_decoded, a.l1_failures, a.ts_errors, a.ts_packets) == \
+        (b.frames_decoded, b.l1_failures, b.ts_errors, b.ts_packets)
+    assert a.snr_db == b.snr_db and a.timing_offset == b.timing_offset
+    assert a.cfo_hz == b.cfo_hz and a.sco_ppm == b.sco_ppm
+    assert type(mine.params) is tparams.T2Params
+    assert mine.params == params_from_reference(ref.params)

@@ -21,8 +21,15 @@ from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate, FECFrame
 from sdr_receiver_dvb_t2_tpu.ops import ldpc_pallas as qc
 from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as tl
 from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_tables
+from sdr_receiver_dvb_t2_tpu_torch.utils.reference import from_reference as P_
 
 torch.set_num_threads(1)
+
+
+def P(*values):
+    """The JAX package's enums -> the port's own (by name)."""
+    return P_(values)
+
 
 S, N = FECFrame.SHORT, FECFrame.NORMAL
 
@@ -70,7 +77,7 @@ def _jax_k1(frame, rate, llr_t, max_iters, check_every, min_iters, min_it,
 
 @pytest.mark.parametrize("frame,rate", sorted(_TABLE_KEY, key=str))
 def test_qc_tables_equal_jax(frame, rate):
-    mine = ldpc_tables.qc_tables(frame, rate)
+    mine = ldpc_tables.qc_tables(*P(frame, rate))
     ref = qc.qc_tables(frame, rate)
     for f in ("n", "k", "q", "n_groups", "degmax"):
         assert getattr(mine, f) == getattr(ref, f)
@@ -105,8 +112,8 @@ def test_plain_decoder_equals_jax(case):
     cw, llr_t = _noisy(frame, rate, b, amp, seed=len(case))
     ref_bits, ref_it = _jax_k1(frame, rate, llr_t, max_iters, ce,
                                min_iters, min_it, order)
-    dec = tl.make_adaptive_decoder_nb_fused_io(
-        frame, rate, max_iters=max_iters, check_every=ce,
+    dec = tl.make_adaptive_decoder_nb_fused_io(*P(frame, rate),
+        max_iters=max_iters, check_every=ce,
         min_iters=min_iters, layer_order=order)
     bits, it = dec(torch.from_numpy(llr_t), torch.tensor(min_it))
     assert it.dtype == torch.int32 and int(it) == ref_it
@@ -127,13 +134,13 @@ def test_syndrome_weight_equals_jax():
     tp = rng.normal(size=(tab.q, 360, 4)).astype(np.float32)
     ref = np.asarray(_syndrome(frame, rate)(jnp.asarray(ti),
                                             jnp.asarray(tp)))
-    got = tl.qc_syndrome_weight(frame, rate, torch.from_numpy(ti),
+    got = tl.qc_syndrome_weight(*P(frame, rate), torch.from_numpy(ti),
                                 torch.from_numpy(tp))
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_kernel_wrapper_refuses_cpu_tensor():
-    dec = tl.make_adaptive_decoder_nb_fused_io(S, CodeRate.C1_2)
+    dec = tl.make_adaptive_decoder_nb_fused_io(*P(S, CodeRate.C1_2))
     v = torch.zeros((16200, 2), dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         dec.kernel(v)
@@ -145,8 +152,8 @@ def test_kernel_equals_plain_on_card():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     for frame, rate, b in ((S, CodeRate.C1_2, 5), (N, CodeRate.C2_3, 128)):
         _, llr_t = _noisy(frame, rate, b, 1.6, seed=b)
-        dec = tl.make_adaptive_decoder_nb_fused_io(
-            frame, rate, max_iters=24, check_every=1,
+        dec = tl.make_adaptive_decoder_nb_fused_io(*P(frame, rate),
+            max_iters=24, check_every=1,
             layer_order="reversed")
         v = torch.from_numpy(llr_t).to("cuda", torch.bfloat16)
         kb, kit = dec.kernel(v, 0)

@@ -15,8 +15,15 @@ from sdr_receiver_dvb_t2_tpu.dvbt2 import ldpc as ldpcmod
 from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate, FECFrame
 from sdr_receiver_dvb_t2_tpu.ops import ldpc as jldpc
 from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc as tldpc
+from sdr_receiver_dvb_t2_tpu_torch.utils.reference import from_reference as P_
 
 torch.set_num_threads(1)
+
+
+def P(*values):
+    """The JAX package's enums -> the port's own (by name)."""
+    return P_(values)
+
 
 S = FECFrame.SHORT
 B = 5
@@ -41,7 +48,7 @@ def test_flood_bits_equal_jax(rate, amp, iters):
     code, cw, llr = _noisy(rate, amp, seed=iters)
     ref = np.asarray(jldpc.make_decoder(code, iters=iters, dtype="bfloat16")(
         jnp.asarray(llr)))
-    dec = tldpc.make_decoder(S, rate, iters=iters)
+    dec = tldpc.make_decoder(*P(S, rate), iters=iters)
     bits = dec(torch.from_numpy(llr))
     assert bits.dtype == torch.uint8 and bits.shape == (B, code.n)
     np.testing.assert_array_equal(bits.numpy(), ref)
@@ -55,17 +62,17 @@ def test_flood_bf16_input_cast_once():
     caller casts to bf16 first or not (what the batched receiver path
     passes)."""
     _, _, llr = _noisy(CodeRate.C1_2, 1.6, seed=3)
-    dec = tldpc.make_decoder(S, CodeRate.C1_2, iters=6)
+    dec = tldpc.make_decoder(*P(S, CodeRate.C1_2), iters=6)
     x = torch.from_numpy(llr)
     assert torch.equal(dec(x), dec(x.bfloat16()))
 
 
 def test_vn_adjacency_equals_jax():
     for rate in (CodeRate.C1_2, CodeRate.C3_4):
-        np.testing.assert_array_equal(tldpc._vn_adjacency(S, rate),
+        np.testing.assert_array_equal(tldpc._vn_adjacency(*P(S, rate)),
                                       jldpc._vn_adjacency((S, rate)))
 
 
 def test_make_decoder_is_cached_per_code():
-    assert tldpc.make_decoder(S, CodeRate.C1_2, iters=4) is \
-        tldpc.make_decoder(S, CodeRate.C1_2, iters=4)
+    assert tldpc.make_decoder(*P(S, CodeRate.C1_2), iters=4) is \
+        tldpc.make_decoder(*P(S, CodeRate.C1_2), iters=4)

@@ -28,8 +28,15 @@ from sdr_receiver_dvb_t2_tpu.dvbt2.ldpc import _TABLE_KEY
 from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate, FECFrame
 from sdr_receiver_dvb_t2_tpu.ops import ldpc_pallas as qc
 from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as tl
+from sdr_receiver_dvb_t2_tpu_torch.utils.reference import from_reference as P_
 
 torch.set_num_threads(1)
+
+
+def P(*values):
+    """The JAX package's enums -> the port's own (by name)."""
+    return P_(values)
+
 
 S, N = FECFrame.SHORT, FECFrame.NORMAL
 B = 8
@@ -70,8 +77,8 @@ def test_k2_plain_equals_jax_kernel(case):
     cw, llr_t = _noisy(S, rate, B, amp, seed=len(case))
     ref_bits, ref_it = _jax_k2(rate, max_iters, ce, min_iters, order)(
         jnp.asarray(llr_t), min_it)
-    dec = tl.make_adaptive_decoder_nb_fused(
-        S, rate, max_iters=max_iters, check_every=ce, batch=B,
+    dec = tl.make_adaptive_decoder_nb_fused(*P(S, rate),
+        max_iters=max_iters, check_every=ce, batch=B,
         min_iters=min_iters, layer_order=order)
     bits, it = dec(torch.from_numpy(llr_t), min_it)
     assert it.dtype == torch.int32 and int(it) == int(ref_it)
@@ -87,8 +94,8 @@ def test_k2_plain_equals_jax_kernel(case):
 def test_k2_takes_f32_llrs_unrounded():
     """K2 stages f32 totals: an LLR that bf16 would round changes K2's
     input and not K1's."""
-    dec2 = tl.make_adaptive_decoder_nb_fused(S, CodeRate.C1_2)
-    dec1 = tl.make_adaptive_decoder_nb_fused_io(S, CodeRate.C1_2)
+    dec2 = tl.make_adaptive_decoder_nb_fused(*P(S, CodeRate.C1_2))
+    dec1 = tl.make_adaptive_decoder_nb_fused_io(*P(S, CodeRate.C1_2))
     x = torch.full((16200, 2), 1.001)
     assert dec2._input(x).dtype == torch.float32
     assert torch.equal(dec2._input(x), x)
@@ -102,7 +109,7 @@ def test_k3_plain_equals_jax_kernel(rate, amp):
     cw, llr_t = _noisy(S, rate, B, amp, seed=11)
     ref = qc.make_decoder_nb(S, rate, iters=6, batch=B, interpret=True,
                              variant="vmem")(jnp.asarray(llr_t))
-    dec = tl.make_decoder_nb(S, rate, iters=6, batch=B, variant="vmem")
+    dec = tl.make_decoder_nb(*P(S, rate), iters=6, batch=B, variant="vmem")
     assert dec.core == tl.LayeredCore("vmem", 6)
     assert dec.core.c2v_dtype == torch.bfloat16
     bits = dec(torch.from_numpy(llr_t))
@@ -122,7 +129,7 @@ def test_k4_plain_equals_xla_layered_decoder(rate, iters):
     tab = qc.qc_tables(S, rate)
     ti, tp = qc.llrs_nb_to_qc_jnp(tab, jnp.asarray(llr_t))
     ti2, tp2 = qc.build_layered_decoder(S, rate, iters=iters)(ti, tp)
-    dec = tl.make_decoder_nb(S, rate, iters=iters, batch=B, variant="hbm")
+    dec = tl.make_decoder_nb(*P(S, rate), iters=iters, batch=B, variant="hbm")
     assert dec.core == tl.LayeredCore("hbm", iters)
     assert dec.core.c2v_dtype == torch.float32
     bits = dec(torch.from_numpy(llr_t))
@@ -144,7 +151,7 @@ def test_k4_plain_first_sweep_equals_jax_kernel():
     ti, tp = qc.llrs_nb_to_qc_jnp(tab, jnp.asarray(llr_t))
     ti2, tp2 = qc.make_pallas_layered(S, rate, iters=1, batch=B,
                                       interpret=True)(ti, tp)
-    bits = tl.make_decoder_nb(S, rate, iters=1, batch=B, variant="hbm")(
+    bits = tl.make_decoder_nb(*P(S, rate), iters=1, batch=B, variant="hbm")(
         torch.from_numpy(llr_t))
     np.testing.assert_array_equal(bits.numpy(),
                                   _jax_totals_bits(rate, ti2, tp2))
@@ -156,7 +163,7 @@ def test_k4_argmin_equals_no_argmin_form_with_ties():
     so both forms must give the same totals: checked on LLRs on a 0.5 grid
     (with offset 0.5 every message stays on it, so ties are common)."""
     rate = CodeRate.C1_2
-    tab = tl.qc_tables(S, rate)
+    tab = tl.qc_tables(*P(S, rate))
     rng = np.random.default_rng(4)
     llr = torch.from_numpy((np.round(rng.normal(1.0, 1.5, (tab.n, B)) * 2)
                             / 2).astype(np.float32))
@@ -180,26 +187,26 @@ def test_k4_argmin_equals_no_argmin_form_with_ties():
 @pytest.mark.parametrize("frame,rate", sorted(_TABLE_KEY, key=str))
 def test_vmem_fit_and_core_choice_equal_jax(frame, rate):
     for batch in (8, 128):
-        fit = tl.vmem_fit_bytes(frame, rate, batch)
+        fit = tl.vmem_fit_bytes(*P(frame, rate), batch)
         assert fit == qc.vmem_fit_bytes(frame, rate, batch)
         want = "vmem" if fit <= qc._VMEM_BUDGET else "hbm"
-        core = tl.make_core(frame, rate, 10, batch)
+        core = tl.make_core(*P(frame, rate), 10, batch)
         assert core.variant == want
         assert core.c2v_dtype == (torch.bfloat16 if want == "vmem"
                                   else torch.float32)
     assert tl._VMEM_BUDGET == qc._VMEM_BUDGET
     # NORMAL C3/5 at B=128 is the one code that takes K4
-    assert (tl.make_core(frame, rate, 10, 128).variant == "hbm") == (
+    assert (tl.make_core(*P(frame, rate), 10, 128).variant == "hbm") == (
         (frame, rate) == (N, CodeRate.C3_5))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     v = torch.zeros((16200, 2))
     with pytest.raises(ValueError):
-        tl.make_adaptive_decoder_nb_fused(S, CodeRate.C1_2).kernel(v)
+        tl.make_adaptive_decoder_nb_fused(*P(S, CodeRate.C1_2)).kernel(v)
     for variant in ("vmem", "hbm"):
         with pytest.raises(ValueError):
-            tl.make_decoder_nb(S, CodeRate.C1_2, 4, 2,
+            tl.make_decoder_nb(*P(S, CodeRate.C1_2), 4, 2,
                                variant=variant).kernel(v)
 
 
@@ -211,10 +218,11 @@ def test_k2_k3_k4_kernels_equal_plain_on_card():
         _, llr_t = _noisy(frame, rate, b, 1.6, seed=b)
         v = torch.from_numpy(llr_t).to("cuda")
         k2 = tl.make_adaptive_decoder_nb_fused(
-            frame, rate, max_iters=24, check_every=2, layer_order="reversed")
+            *P(frame, rate), max_iters=24, check_every=2,
+            layer_order="reversed")
         kb, kit = k2.kernel(v, 0)
         pb, pit = k2.plain(v, 0)
         assert int(kit) == int(pit) and torch.equal(kb, pb)
         for variant in ("vmem", "hbm"):
-            dec = tl.make_decoder_nb(frame, rate, 6, b, variant=variant)
+            dec = tl.make_decoder_nb(*P(frame, rate), 6, b, variant=variant)
             assert torch.equal(dec.kernel(v), dec.plain(v))

@@ -11,15 +11,18 @@ class _Stage:
         return x + 1
 
 
-def test_stage_timer_counts_calls_and_restores():
+def test_stage_timer_counts_calls_and_restores(capsys):
     inner = _Stage.__call__
     timer = pr.StageTimer()
     timer.wrap(_Stage, "__call__", "stage", device=False)
     stage = _Stage()
     assert [stage(1), stage(2)] == [2, 3]
-    assert timer.calls["stage"] == 2 and timer.seconds["stage"] > 0
+    assert len(timer.times["stage"]) == 2 and min(timer.times["stage"]) > 0
+    timer.report()
+    out = capsys.readouterr().out
+    assert "stage" in out and "x2" in out and "calls" in out
     timer.reset()
-    assert not timer.calls and not timer.seconds
+    assert not timer.times
     timer.unwrap()
     assert _Stage.__call__ is inner
 

@@ -4,7 +4,8 @@ repository's bench composes them (`one_superstep`): raw impaired samples
 -> front end -> fused path -> layered LDPC (K1 in interpret mode) -> BCH
 gate -> BB bytes, at the 8K/16QAM SHORT mode.  Decoded BB bytes, hashes
 and sweep counts must be equal, and the TS reassembled from every frame
-must be the transmitted TS.  Also: the port imports without jax."""
+must be the transmitted TS.  Also: the port imports and runs with jax
+and the JAX package blocked."""
 import subprocess
 import sys
 
@@ -22,6 +23,7 @@ from sdr_receiver_dvb_t2_tpu.ops import ldpc_pallas as qldpc
 from sdr_receiver_dvb_t2_tpu.rx import fusedpath as jfp
 from sdr_receiver_dvb_t2_tpu_torch.rx import superstep as tss
 from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen
+from sdr_receiver_dvb_t2_tpu_torch.utils.reference import from_reference as R
 
 torch.set_num_threads(1)
 
@@ -42,7 +44,7 @@ def _mode():
 
 def _capture():
     p, plp = _mode()
-    ts, frames, rows = benchgen.modulate(p, plp, F, seed=5)
+    ts, frames, rows = benchgen.modulate(R(p), R(plp), F, seed=5)
     pad = 2 * HALF
     ratio = np.float32(1 + SCO)
     n_raw = int(np.ceil((p.frame_samples + pad) * ratio)) + 4 * HALF
@@ -89,7 +91,7 @@ def test_superstep_equals_jax_and_transmitted_ts():
     p, plp, ts, rows, raw, track = _capture()
     kb8 = plp.fec.k_bch // 8
     weights = tss.hash_weights(kb8, NB)
-    step = tss.Superstep(p, plp, NB, F, FS, weights)
+    step = tss.Superstep(R(p), R(plp), NB, F, FS, weights)
     inv = 100.0                                     # 20 dB: floor at 8
     sums, oks, iters, byts = step(torch.from_numpy(raw[..., 0].copy()),
                                   torch.from_numpy(raw[..., 1].copy()), inv,
@@ -114,7 +116,7 @@ def test_tracking_estimate_on_port_impaired_capture():
     (with AWGN from a torch.Generator) and the product's acquisition
     recover the bench's CFO, SCO and frame start."""
     p, plp = _mode()
-    _, frames, _ = benchgen.modulate(p, plp, 2, seed=6)
+    _, frames, _ = benchgen.modulate(R(p), R(plp), 2, seed=6)
     gen = torch.Generator().manual_seed(3)
     track, (cfo, ratio, pos0) = benchgen.estimate_tracking(
         frames, 10 ** -2.5, gen, "cpu")
@@ -134,17 +136,65 @@ def test_hash_catches_slot_and_frame_permutations():
     assert not np.array_equal(tss.expected_hash(rows[0][::-1], w), h0)
 
 
+GUARD = """
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "sdr_receiver_dvb_t2_tpu", "triton")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this test: " + name)
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+import sdr_receiver_dvb_t2_tpu_torch as m
+torch.set_num_threads(1)
+# Python modules only: the native library, once built, is a .so that
+# pkgutil lists beside them
+names = [mod.name for mod in pkgutil.walk_packages(m.__path__,
+                                                   m.__name__ + ".")
+         if mod.ispkg or mod.module_finder.find_spec(mod.name).origin
+         .endswith(".py")]
+for name in names:
+    importlib.import_module(name)
+
+from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import (
+    CodeRate, Constellation, FECFrame, FFTMode, GuardInterval, PilotPattern,
+    PLPParams, T2Params)
+from sdr_receiver_dvb_t2_tpu_torch.rx.device_receiver import DeviceT2Receiver
+from sdr_receiver_dvb_t2_tpu_torch.tx.modulator import T2Modulator
+p = T2Params(fft_mode=FFTMode.FFT_8K, guard=GuardInterval.GI_1_32,
+             pilot_pattern=PilotPattern.PP1, extended_carrier=False, n_data=9)
+plp = PLPParams(constellation=Constellation.QAM16, rate=CodeRate.C1_2,
+                fec_frame=FECFrame.SHORT, num_blocks_max=3, time_il_length=1)
+mod = T2Modulator(p, [plp])
+rng = np.random.default_rng(2)
+ts = rng.integers(0, 256, (mod.packets_needed(2) + 4, 188)).astype(np.uint8)
+ts[:, 0] = 0x47
+ts[:, 1] &= 0x7F
+res = DeviceT2Receiver(device="cpu").receive(
+    mod.modulate(ts.reshape(-1), 2).samples)
+exact = len(res.ts) > 0 and np.array_equal(res.ts,
+                                           ts.reshape(-1)[:len(res.ts)])
+bad = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
+print(len(names), res.stats.frames_decoded, bool(exact), bad)
+"""
+
+
 def test_port_imports_without_jax():
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import sdr_receiver_dvb_t2_tpu_torch as m\n"
-        "for mod in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
-        "    importlib.import_module(mod.name)\n"
-        "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'triton'))\n"
-        "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith(m.__name__)]))\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300)
+    """In a process where importing jax, jaxlib, triton or the JAX package
+    raises: every module of the port imports, and a modulate ->
+    DeviceT2Receiver(device="cpu").receive() loopback gives the
+    transmitted TS."""
+    out = subprocess.run([sys.executable, "-c", GUARD], capture_output=True,
+                         text=True, timeout=600)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 12          # every module was imported
+    n_mods, frames, exact, bad = out.stdout.strip().split(" ", 3)
+    assert int(n_mods) >= 45              # every module was imported
+    assert int(frames) == 2 and exact == "True"
+    assert bad == "[]"
