@@ -29,12 +29,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        tolerance, stage 1 by K6 plus the stage-2 einsum against
        torch.fft.fft, and K6's time beside the same function through bf16
        torch.matmul.
+     Then the layered kernel body on every code `qc_tables` knows (13) at
+     B=8 (`tools/ldpc_layer_bench.check_all_codes`): 3 fixed sweeps in
+     natural order through K3's and K4's doors, the adaptive exit in
+     reversed order through K2's door at a noise level where the batch
+     needs several sweeps, and an explicit non-monotone layer order at
+     SHORT C1/2 and NORMAL C5/6; tolerance 0.  K1's and K2's time per
+     sweep and fixed part (a line through their 1 or 2, 9 or 10, and 24
+     sweep cases), and the time of one layer at B=128 and at B=8, where 8
+     CTAs have the card to themselves (`layer_times`); from the latter
+     each layered kernel's dependency-chain floor (`[chain floor]`: the
+     layers of one codeword run one after another on one SM), printed
+     beside its roofline bound.
   3. the superstep: F frames modulated on the host (T2Modulator), impaired
      on the card (CFO +1.2 kHz, SCO +22 ppm, DC, IQ imbalance, int16 ADC),
      tracking state estimated by T2Receiver.refine_acquire on a 2-frame
      capture, then the superstep at clean and at 20 dB.  Gates: every
      codeword BCH-clean, per-frame hashes equal to the host expectation,
-     the TS reassembled from all frames bit-exact, K1 launched.  Then K5's
+     the TS reassembled from all frames bit-exact, K1 launched.  Each
+     point also prints the step's device time by stage (`superstep_split`:
+     CUDA events at the stage marks of `Superstep.__call__`).  Then K5's
      path, its front door on the superstep's own frame-0 LLRs (every
      codeword BCH-clean, the BB bytes equal to the transmitted ones), and
      K6's path, the FFT microbench tool (`tools/fft_microbench.run`: every
@@ -93,20 +107,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of `fn` over `reps` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def kernel_wrappers():
     """{name: the launch-counting wrapper} of K1-K6."""
     from sdr_receiver_dvb_t2_tpu_torch.ops import fft_stage1
@@ -147,20 +147,14 @@ def phase_build():
     log(f"[build] csrc/*.cu in parallel in {time.time() - t0:.2f} s")
     for name in ("ldpc_layered", "fft_stage1"):
         _build.load(name)
-        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
-                if "registers" in ln or "spill" in ln and "0 bytes spill"
-                not in ln]
-        log(f"[build] {name}.cu ptxas: " + " | ".join(regs))
-
-
-def _llrs(cw, sigma, rng, dtype):
-    """(B, n) codewords -> (n, B) channel LLRs on the card in `dtype`."""
-    y = 1.0 - 2.0 * cw
-    if sigma > 0:
-        y = y + rng.normal(0.0, sigma, cw.shape)
-    llr = 2.0 * y / max(sigma, 0.5) ** 2
-    return torch.from_numpy(np.ascontiguousarray(llr.T, np.float32)).to(
-        "cuda", dtype)
+        lines = _build.build_log(name).splitlines()
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                if "Used " in ln and "registers" in ln]
+        spills = [int(ln.split(" bytes spill stores")[0].split()[-1])
+                  for ln in lines if "bytes spill stores" in ln]
+        log(f"[build] {name}.cu ptxas: {len(regs)} kernels, registers "
+            f"{min(regs)}..{max(regs)}; {sum(b > 0 for b in spills)} of "
+            f"{len(spills)} functions spill, at most {max(spills)} bytes")
 
 
 def _diff(a, b):
@@ -171,22 +165,24 @@ def phase_adaptive(tag, dec, code, dtype, seed):
     """An adaptive kernel (K1 or K2) against its plain version on the
     noise cases; tolerance 0 (bits and sweep counts are integers).
     -> the kernel's record: worst |diff|, and at sigma 0.65 the kernel's
-    and the plain version's ms and the kernel's bound."""
+    and the plain version's ms, the kernel's bound and (`_layers`, not part
+    of the printed record) the layers one codeword ran."""
+    from sdr_receiver_dvb_t2_tpu_torch.tools import ldpc_layer_bench as lb
     from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen
     cw = benchgen.codewords(*code, NUM_BLOCKS, seed=seed)
     rng = np.random.default_rng(seed)
-    worst, timed = 0, None
+    worst, timed, by_sweeps = 0, None, []
     in_bytes = torch.finfo(dtype).bits // 8
     for label, sigma, floor in NOISE_CASES:
-        v = _llrs(cw, sigma, rng, dtype)
+        v = lb.channel_llrs(cw, sigma, rng, dtype)
         kb, kit = dec.kernel(v, floor)
         pb, pit = dec.plain(v, floor)
         torch.cuda.synchronize()
         err = max(_diff(kb, pb), abs(int(kit) - int(pit)))
         worst = max(worst, err)
         ok_cw = int((kb.cpu().numpy().T == cw).all(axis=1).sum())
-        k_ms = cuda_ms(lambda: dec.kernel(v, floor), 5)
-        p_ms = cuda_ms(lambda: dec.plain(v, floor), 1)
+        k_ms = lb.cuda_ms(lambda: dec.kernel(v, floor), 5)
+        p_ms = lb.cuda_ms(lambda: dec.plain(v, floor), 1)
         log(f"[{tag} vs plain] {code[0].name} {code[1].name} B={NUM_BLOCKS} "
             f"{label}: sweeps kernel {int(kit)} plain {int(pit)}, max |diff| "
             f"{err} (tolerance 0), {ok_cw}/{NUM_BLOCKS} codewords decoded; "
@@ -194,13 +190,47 @@ def phase_adaptive(tag, dec, code, dtype, seed):
         if err != 0:
             raise RuntimeError(f"{tag} disagrees with its plain version "
                                f"({label})")
+        if floor == 0:
+            by_sweeps.append((int(kit), k_ms))
         if label == "sigma 0.65":
             sweeps = int(kit)
             bound, by = ldpc_bound(code, NUM_BLOCKS, in_bytes, sweeps,
                                    checks=sweeps // dec.check_every)
             timed = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": None}
+                     "bound_by": by, "library_ms": None,
+                     "_layers": sweeps * dec.tab.q}
+    slope, fixed = lb.line_fit(by_sweeps)
+    log(f"[{tag} per sweep] "
+        + ", ".join(f"{n} sweeps {t:.3f} ms" for n, t in by_sweeps)
+        + f": {slope:.4f} ms per sweep (with its syndrome pass"
+        + ("" if dec.check_every == 1
+           else f" every {dec.check_every} sweeps")
+        + f") + {fixed:.4f} ms fixed")
     return {"max_abs_err": worst, **timed}
+
+
+def phase_all_codes():
+    """The layered kernel body on every code at B=8 against the plain
+    version (tolerance 0; raises on a disagreement), then what one layer
+    costs at the headline code and at K4's.
+    -> {rate name: the least time of one layer in us}: the slope at B=8,
+    where no other CTA competes for the card."""
+    from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import CodeRate, FECFrame
+    from sdr_receiver_dvb_t2_tpu_torch.tools import ldpc_layer_bench as lb
+    t0 = time.time()
+    records = lb.check_all_codes(log=log)
+    codes = {r["code"] for r in records}
+    log(f"[all codes] {len(records)} cases on {len(codes)} codes equal to "
+        f"the plain version in {time.time() - t0:.1f} s")
+    if len(codes) != 13:
+        raise RuntimeError(f"the all-codes phase ran {len(codes)} codes")
+    least = {}
+    for rate, variant in ((CodeRate.C2_3, "vmem"), (CodeRate.C3_5, "hbm")):
+        for r in lb.layer_times(FECFrame.NORMAL, rate, variant):
+            least[rate.name] = min(least.get(rate.name, r["us_per_layer"]),
+                                   r["us_per_layer"])
+            log(lb.layer_times_line(FECFrame.NORMAL, rate, variant, r))
+    return least
 
 
 def phase_fixed(tag, rate, variant, sigma_hard, seed):
@@ -211,10 +241,10 @@ def phase_fixed(tag, rate, variant, sigma_hard, seed):
     `sigma_hard`, beyond the code's threshold, where codewords must stay
     undecoded (bits that have not settled on the transmitted word show any
     numerical difference).
-    -> the kernel's record: worst |diff|, and at sigma 0.65 the kernel's
-    and the plain version's ms and the kernel's bound."""
+    -> the kernel's record, as `phase_adaptive` gives it."""
     from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import FECFrame
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered
+    from sdr_receiver_dvb_t2_tpu_torch.tools import ldpc_layer_bench as lb
     from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen
     cw = benchgen.codewords(FECFrame.NORMAL, rate, NUM_BLOCKS, seed=seed)
     rng = np.random.default_rng(seed)
@@ -233,7 +263,7 @@ def phase_fixed(tag, rate, variant, sigma_hard, seed):
                     f"{rate.name}, expected {variant}")
             what = f"auto choice {variant!r} (c2v {dec.core.c2v_dtype})"
         # K5 gets f32 LLRs too: its front door rounds them to bf16
-        v = _llrs(cw, sigma, rng, torch.float32)
+        v = lb.channel_llrs(cw, sigma, rng, torch.float32)
         kb, pb = dec.kernel(v), dec.plain(v)
         torch.cuda.synchronize()
         err = _diff(kb, pb)
@@ -247,9 +277,10 @@ def phase_fixed(tag, rate, variant, sigma_hard, seed):
         if sweeps == 12:
             bound, by = ldpc_bound((FECFrame.NORMAL, rate), NUM_BLOCKS,
                                    2 if variant == "fused_io" else 4, sweeps)
-            timed = {"ms": cuda_ms(lambda: dec.kernel(v), 5),
-                     "plain_ms": cuda_ms(lambda: dec.plain(v), 1),
-                     "bound_ms": bound, "bound_by": by, "library_ms": None}
+            timed = {"ms": lb.cuda_ms(lambda: dec.kernel(v), 5),
+                     "plain_ms": lb.cuda_ms(lambda: dec.plain(v), 1),
+                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "_layers": sweeps * dec.tab.q}
             line += (f"; kernel {timed['ms']:.3f} ms, plain "
                      f"{timed['plain_ms']:.3f} ms, bound {bound:.4f} ms")
         log(line)
@@ -301,9 +332,9 @@ def phase_k6(f):
         raise RuntimeError("K6 plus stage 2 is not the FFT")
     yr, yi = stage._input(xr, xi)
     tabs = stage.tables("cuda")
-    k_ms = cuda_ms(lambda: fft_stage1.fft_stage1_cuda(yr, yi, *tabs), 10)
-    p_ms = cuda_ms(lambda: fft_stage1.stage1_plain(yr, yi, *tabs), 2)
-    l_ms = cuda_ms(lambda: mb.stage1_matmul_bf16(yr, yi, *tabs), 10)
+    k_ms = mb.cuda_ms(lambda: fft_stage1.fft_stage1_cuda(yr, yi, *tabs), 10)
+    p_ms = mb.cuda_ms(lambda: fft_stage1.stage1_plain(yr, yi, *tabs), 2)
+    l_ms = mb.cuda_ms(lambda: mb.stage1_matmul_bf16(yr, yi, *tabs), 10)
     n1, n2 = stage.n1, stage.n2
     byts = 2 * (4 * f * s * n + 2 * n1 * n1 + 2 * n1 * n2)
     ops = f * s * (4 * 2 * n1 * n1 * n2 + 6 * n)
@@ -337,9 +368,31 @@ def phase_kernels():
     }
 
 
+def superstep_split(step, raw, inv, track, reps=3):
+    """Device ms per stage of one superstep: a CUDA event at every stage
+    mark of `Superstep.__call__`, the gaps summed by stage, the mean of
+    `reps` steps after one warm-up."""
+    step(*raw, inv, track)
+    total = {}
+    for _ in range(reps):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(stage):
+            events.append((stage, torch.cuda.Event(enable_timing=True)))
+            events[-1][1].record()
+
+        step(*raw, inv, track, mark=mark)
+        torch.cuda.synchronize()
+        for (_, e0), (stage, e1) in zip(events, events[1:]):
+            total[stage] = total.get(stage, 0.0) + e0.elapsed_time(e1) / reps
+    return total
+
+
 def phase_slice(n_frames):
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered
     from sdr_receiver_dvb_t2_tpu_torch.rx import superstep as ss_mod
+    from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
     from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen as bg
 
     t0 = time.time()
@@ -383,7 +436,7 @@ def phase_slice(n_frames):
                  and np.array_equal(got, ts[:len(got)]))
         hash_ok = bool((sums == expect).all())
         bch_ok = bool((oks == NUM_BLOCKS).all())
-        dt = cuda_ms(lambda: step(*raws[lab], inv, track), 3)
+        dt = mb.cuda_ms(lambda: step(*raws[lab], inv, track), 3)
         log(f"[slice {lab}] BCH clean {oks.min()}..{oks.max()}/{NUM_BLOCKS}"
             f"; hashes {'ok' if hash_ok else 'FAIL'} x{n_frames}; TS "
             f"bit-exact={ts_ok} ({len(got)} of {len(ts)} bytes); LDPC "
@@ -391,6 +444,9 @@ def phase_slice(n_frames):
             f"{dt:.2f} ms = {dt / n_frames:.3f} ms/frame")
         if not (bch_ok and hash_ok and ts_ok):
             raise RuntimeError(f"slice gate failed at {lab}")
+        split = superstep_split(step, raws[lab], inv, track)
+        log(f"[slice {lab}] device ms per superstep by stage: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
 
     # the kernel on the main path's own LLRs (frame 0, 20 dB)
     (sr, si), _, _ = step.frontend(*raws["20 dB"], track[0], track[1],
@@ -671,6 +727,16 @@ def main():
 
     phase_build()
     checks = phase_kernels()
+    layer_us = phase_all_codes()
+    # the second floor of a layered kernel, beside its roofline bound: the
+    # layers of one codeword run one after another on one SM
+    for k in ("K1", "K2", "K3", "K4", "K5"):
+        layers = checks[k].pop("_layers")
+        us = layer_us["C3_5" if k == "K4" else "C2_3"]
+        log(f"[chain floor] {k}: {layers} layers x {us:.3f} us (the least "
+            f"time of one layer's gather, scan, barrier and write-back) = "
+            f"{layers * us / 1e3:.3f} ms; kernel {checks[k]['ms']:.3f} ms, "
+            f"roofline bound {checks[k]['bound_ms']:.4f} ms")
     launches, err_slice = phase_slice(args.frames)
     p, plp = bg.headline_mode(NUM_BLOCKS)
     launches["K6"] = phase_fft_tool(FFT_FRAMES)

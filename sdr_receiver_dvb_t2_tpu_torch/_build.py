@@ -9,6 +9,7 @@ package and use the kernels' plain PyTorch versions on CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,10 +43,17 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_EXTRA: dict[str, tuple] = {}     # name -> extra nvcc flags (see `variant`)
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + _EXTRA.get(name, ())
+
+
 def _paths(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return src, CACHE / f"{name}-{key}.so"
 
 
@@ -58,7 +66,7 @@ def _start_build(name: str):
     CACHE.mkdir(exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *_flags(name), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so, src
 
@@ -102,6 +110,24 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_paths(name)[1]))
         _LIBS[name] = lib
         return lib
+
+
+@contextlib.contextmanager
+def variant(name: str, *flags: str):
+    """Within the block `load(name)` gives a build of `csrc/<name>.cu` with
+    extra nvcc flags (a -D switch of the source, such as a profiling
+    mode); afterwards the regular build is back."""
+    with _LOCK:
+        regular = _LIBS.pop(name, None)
+        _EXTRA[name] = tuple(flags)
+    try:
+        yield
+    finally:
+        with _LOCK:
+            _EXTRA.pop(name, None)
+            _LIBS.pop(name, None)
+            if regular is not None:
+                _LIBS[name] = regular
 
 
 def build_log(name: str) -> str:

@@ -261,54 +261,180 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name in ("ldpc_k1_decode", "ldpc_k2_decode"):
             fn = getattr(lib, name)
-            fn.argtypes = [p] * 8 + [i] * 9 + [f, p]
+            fn.argtypes = [p] * 8 + [i] * 10 + [f, p]
             fn.restype = i
         for name in ("ldpc_k3_decode", "ldpc_k4_decode", "ldpc_k5_decode"):
             fn = getattr(lib, name)
-            fn.argtypes = [p] * 7 + [i] * 7 + [f, p]
+            fn.argtypes = [p] * 7 + [i] * 8 + [f, p]
             fn.restype = i
-        lib.ldpc_layered_max_groups.restype = i
-        lib.ldpc_layered_emax.restype = i
+        lib.ldpc_layered_smem_limit.restype = i
+        for name in ("ldpc_layered_has_degree", "ldpc_layered_has_uniform"):
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = i
+        lib.ldpc_layered_row_bytes.argtypes = [i]
+        lib.ldpc_layered_row_bytes.restype = i
         lib.ldpc_layered_error_string.argtypes = [i]
         lib.ldpc_layered_error_string.restype = ctypes.c_char_p
+        lib.ldpc_layered_layout.argtypes = [p]
+        lib.ldpc_layered_layout.restype = None
+        layout = (i * len(TABLE_LAYOUT))()
+        lib.ldpc_layered_layout(layout)
+        if tuple(layout) != TABLE_LAYOUT:
+            raise RuntimeError(f"the kernel reads the table layout "
+                               f"{tuple(layout)}, pack_tables writes "
+                               f"{TABLE_LAYOUT}")
     return lib
 
 
-def pack_tables(tab: QCTables, order: list) -> np.ndarray:
-    """deg | eg | es | order | dup as one int32 vector (the kernel's
-    table argument); dup[t] = 1 if a group repeats within layer t."""
-    dup = [int(len(set(tab.entry_g[t, :tab.layer_deg[t]].tolist()))
-               < tab.layer_deg[t]) for t in range(tab.q)]
-    return np.concatenate([tab.layer_deg, tab.entry_g.reshape(-1),
-                           tab.entry_s.reshape(-1), np.asarray(order),
-                           np.asarray(dup)]).astype(np.int32)
+# The kernel's table: one row of TABLE_HDR + 2 * degmax int32 words per
+# layer, in visiting order.
+TABLE_HDR = 4
+# where a layer's parity total comes from, given the layer visited before
+SRC_EARLY = 0        # loaded one layer ahead (the layer before leaves it)
+SRC_CARRY_SELF = 1   # the self total the thread wrote in the layer before
+SRC_CARRY_PREV = 2   # the prev total the thread wrote in the layer before
+SRC_LATE = 3         # loaded behind the barrier (written across threads)
+# shared memory one CTA may use on the H100, less what the kernel keeps for
+# its static variables
+SMEM_BYTES = 232448 - 128
+# edges (degmax + 2) whose sign bits fit a stored row beside its index
+MAX_EDGES = 24
+# edges whose 2-bit phase sits in word 3; the later ones go to word 1
+PHASE_LO_EDGES = 16
+# the same constants in the kernel source, in the order of its
+# `ldpc_layered_layout`; `_lib` refuses a library that disagrees
+TABLE_LAYOUT = (TABLE_HDR, SRC_EARLY, SRC_CARRY_SELF, SRC_CARRY_PREV,
+                SRC_LATE, MAX_EDGES, PHASE_LO_EDGES)
+
+
+def _parity_sources(q: int, t: int, before: int) -> tuple[int, int]:
+    """Where layer t takes its two parity totals from when layer `before`
+    ran just ahead of it.  Layer `before` writes row `before` and row
+    `before - 1` with thread u at column u (a register carries them), or,
+    at before == 0, row q-1 one column to the left (another thread's)."""
+    if t == before:                       # q == 1 only
+        return SRC_LATE, SRC_LATE
+    if before > 0 and t == before - 1:
+        s_self = SRC_CARRY_PREV
+    elif before == 0 and t == q - 1:
+        s_self = SRC_LATE
+    else:
+        s_self = SRC_EARLY
+    if t > 0:
+        s_prev = SRC_CARRY_SELF if t - 1 == before else SRC_EARLY
+    else:
+        # row q-1 read one column to the left: another thread's value
+        s_prev = SRC_LATE if before == q - 1 else SRC_EARLY
+    return s_self, s_prev
+
+
+def pack_tables(tab: QCTables, order) -> np.ndarray:
+    """The kernel's table argument, (q, TABLE_HDR + 2 * degmax) int32
+    flattened, row li for the li-th layer visited:
+      word 0  t
+      word 1  deg | phases << 8 | the phase bits of edges 16.. << 16
+              (phases: 1 + the most earlier edges of this layer that hit
+              one edge's group; a barrier separates two phases)
+      word 2  source of the self parity total | source of the prev one << 4
+              (`_parity_sources`, with the layer visited before, cyclically)
+      word 3  the phase of edge j in bits 2j, 2j+1, for j < 16: how many
+              earlier edges of the layer have the same g
+      words 4+2j, 5+2j  for info edge j: the byte offset 4*(g*360 - shift),
+              and shift.  Check row u reads the f32 total at that offset
+              plus 4*u, plus 4*360 where u < shift."""
+    order = [int(t) for t in order]
+    q = tab.q
+    out = np.zeros((q, TABLE_HDR + 2 * tab.degmax), dtype=np.int64)
+    for li, t in enumerate(order):
+        deg = int(tab.layer_deg[t])
+        seen: dict[int, int] = {}
+        phases, phase_bits = 1, 0
+        for j in range(deg):
+            g, s = int(tab.entry_g[t, j]), int(tab.entry_s[t, j])
+            ph = seen.get(g, 0)
+            seen[g] = ph + 1
+            if ph > 3:
+                raise ValueError("an info group repeats more than 4 times "
+                                 "in one layer")
+            phases = max(phases, ph + 1)
+            phase_bits |= ph << (2 * j)
+            out[li, TABLE_HDR + 2 * j] = 4 * (g * NU - s)
+            out[li, TABLE_HDR + 2 * j + 1] = s
+        s_self, s_prev = _parity_sources(q, t, order[li - 1])
+        out[li, 0] = t
+        lo_bits = 2 * PHASE_LO_EDGES
+        out[li, 1] = deg | (phases << 8) | ((phase_bits >> lo_bits) << 16)
+        out[li, 2] = s_self | (s_prev << 4)
+        out[li, 3] = phase_bits & ((1 << lo_bits) - 1)
+    return out.reshape(-1).astype(np.uint32).view(np.int32)
+
+
+def uniform_degree(tab: QCTables) -> int:
+    """The row degree all layers share (every NORMAL code, SHORT C2/3 and
+    C3/5: they run a kernel compiled for that degree), else 0."""
+    degs = set(tab.layer_deg.tolist())
+    return degs.pop() if len(degs) == 1 else 0
+
+
+def row_bytes(c2v_dtype) -> int:
+    """Bytes of one check's stored messages.  The kernel keeps what min-sum
+    makes of a row, whatever its degree: the two magnitudes its new
+    messages take (in `c2v_dtype`), one sign bit per edge and the index of
+    the edge that holds the second magnitude, in 8 bytes for bf16 and 16
+    for f32.  Every message comes back bit for bit."""
+    return 8 if c2v_dtype == torch.bfloat16 else 16
+
+
+def smem_bytes(tab: QCTables) -> int:
+    """Dynamic shared memory of one CTA: the tables (padded to 16 bytes)
+    and the f32 info totals.  The messages never pass through it."""
+    tab_words = -(-(tab.q * (TABLE_HDR + 2 * tab.degmax)) // 4) * 4
+    return 4 * tab_words + 4 * tab.n_groups * NU
+
+
+def check_fits(tab: QCTables, limit: int = SMEM_BYTES) -> None:
+    """Raise unless one CTA's shared memory holds the code's tables and
+    info totals (there is no smaller path to fall back to)."""
+    if smem_bytes(tab) > limit:
+        raise ValueError(f"the code's tables and info totals need "
+                         f"{smem_bytes(tab)} bytes of shared memory; one CTA "
+                         f"has {limit}")
 
 
 def _prepare(name: str, tab: QCTables, tables: torch.Tensor,
-             v: torch.Tensor, in_dtype, c2v_dtype):
+             v: torch.Tensor, in_dtype, c2v_dtype, votes: int = 0):
     """Check the inputs of one launch and allocate its outputs and
-    scratch.  -> (lib, x (B, N) codeword-major, bits, ti, tp, c2v, ctl)."""
+    scratch (`votes`: exit votes of an adaptive decode, each with a
+    counter pair in ctl).  -> (lib, x (N, B) contiguous, udeg, bits, ti, tp,
+    c2v, ctl)."""
     if not v.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
-    if v.dtype != in_dtype or v.dim() != 2 or v.shape[0] != tab.n:
+    if v.dtype != in_dtype or v.dim() != 2 or v.shape[0] != tab.n \
+            or v.shape[1] < 1:
         raise ValueError(f"{name}: expected ({tab.n}, B) {in_dtype} LLRs, "
                          f"got {tuple(v.shape)} {v.dtype}")
     if tables.device != v.device:
         raise ValueError(f"{name}: tables and LLRs must share a device")
     lib = _lib()
-    if tab.n_groups > lib.ldpc_layered_max_groups() \
-            or tab.degmax + 2 > lib.ldpc_layered_emax():
-        raise ValueError("code exceeds the kernel's shared-memory or "
-                         "edge-register budget")
+    check_fits(tab, lib.ldpc_layered_smem_limit())
+    udeg = uniform_degree(tab)
+    rb = row_bytes(c2v_dtype)
+    have = (lib.ldpc_layered_has_uniform(udeg) if udeg else
+            all(lib.ldpc_layered_has_degree(d)
+                for d in set(tab.layer_deg.tolist())))
+    if lib.ldpc_layered_row_bytes(c2v_dtype.itemsize) != rb:
+        raise RuntimeError(f"{name}: the kernel's stored row is not "
+                           f"{rb} bytes")
+    if not have or tab.degmax + 2 > MAX_EDGES or not 2 <= tab.q <= 96:
+        raise ValueError(f"{name}: the kernel is not compiled for this "
+                         "code's row degrees")
     b, dev = v.shape[1], v.device
-    x = v.t().contiguous()                           # (B, N) codeword-major
-    bits = torch.empty((b, tab.n), dtype=torch.uint8, device=dev)
+    bits = torch.empty((tab.n, b), dtype=torch.uint8, device=dev)
     ti = torch.empty((b, tab.n_groups, NU), dtype=torch.float32, device=dev)
     tp = torch.empty((b, tab.q, NU), dtype=torch.float32, device=dev)
-    c2v = torch.empty((b, tab.q, tab.degmax + 2, NU), dtype=c2v_dtype,
-                      device=dev)
-    ctl = torch.empty(4, dtype=torch.int32, device=dev)
-    return lib, x, bits, ti, tp, c2v, ctl
+    c2v = torch.empty((b, tab.q, NU, rb // 4), dtype=torch.int32, device=dev)
+    ctl = torch.empty(4 + 2 * votes, dtype=torch.int32, device=dev)
+    return lib, v.contiguous(), udeg, bits, ti, tp, c2v, ctl
 
 
 def _raise_on(lib, name: str, err: int) -> None:
@@ -323,31 +449,34 @@ def _adaptive_launch(name, in_dtype, tab, tables, v, min_it, max_iters,
             or min_it.numel() != 1:
         raise ValueError(f"{name}: min_it must be one int32 on the LLRs' "
                          "device")
-    lib, x, bits, ti, tp, c2v, ctl = _prepare(name, tab, tables, v,
-                                              in_dtype, torch.bfloat16)
+    if max_iters < 1 or check_every < 1:
+        raise ValueError(f"{name}: max_iters and check_every must be >= 1")
+    lib, x, udeg, bits, ti, tp, c2v, ctl = _prepare(
+        name, tab, tables, v, in_dtype, torch.bfloat16,
+        votes=-(-max_iters // check_every))
     mi = min_it.contiguous()
     fn = getattr(lib, "ldpc_k1_decode" if in_dtype == torch.bfloat16
                  else "ldpc_k2_decode")
     err = fn(x.data_ptr(), bits.data_ptr(), ti.data_ptr(), tp.data_ptr(),
              c2v.data_ptr(), ctl.data_ptr(), tables.data_ptr(), mi.data_ptr(),
              v.shape[1], tab.n, tab.k, tab.n_groups, tab.q, tab.degmax,
-             max_iters, check_every, min_iters, OFFSET,
+             max_iters, check_every, min_iters, udeg, OFFSET,
              torch.cuda.current_stream(v.device).cuda_stream)
     _raise_on(lib, name, err)
-    return bits.t().contiguous(), ctl[1]
+    return bits, ctl[1]
 
 
 def _fixed_launch(name, k_fn, tab, tables, v, iters, c2v_dtype,
                   in_dtype=torch.float32):
-    lib, x, bits, ti, tp, c2v, ctl = _prepare(name, tab, tables, v,
-                                              in_dtype, c2v_dtype)
+    lib, x, udeg, bits, ti, tp, c2v, ctl = _prepare(
+        name, tab, tables, v, in_dtype, c2v_dtype)
     err = getattr(lib, k_fn)(
         x.data_ptr(), bits.data_ptr(), ti.data_ptr(), tp.data_ptr(),
         c2v.data_ptr(), ctl.data_ptr(), tables.data_ptr(), v.shape[1], tab.n,
-        tab.k, tab.n_groups, tab.q, tab.degmax, iters, OFFSET,
+        tab.k, tab.n_groups, tab.q, tab.degmax, iters, udeg, OFFSET,
         torch.cuda.current_stream(v.device).cuda_stream)
     _raise_on(lib, name, err)
-    return bits.t().contiguous()
+    return bits
 
 
 def ldpc_layered_cuda(tab: QCTables, tables: torch.Tensor, v: torch.Tensor,

@@ -62,7 +62,10 @@ class Superstep:
     `track` is the tracking state [cfo_hz, ratio, pos0, phase0] the front
     end corrects with (estimated by the product's acquisition); DC and IQ
     imbalance are estimated inside the step.  `weights` (2, kb8, B) int32
-    are the hash weights (`hash_weights`)."""
+    are the hash weights (`hash_weights`).  `mark`, when given, is called
+    with a stage's name ("frontend", "demod_llr", "ldpc", "fec_tail") each
+    time that stage's work has been enqueued (a profiler records an event
+    there; the LDPC and the tail report once per frame)."""
 
     def __init__(self, p: T2Params, plp: PLPParams, num_blocks: int,
                  n_frames: int, fs: float, weights: np.ndarray):
@@ -81,20 +84,24 @@ class Superstep:
         self.bb_pack = fec_device.make_bb_bytes_nb(plp.fec_frame, plp.rate)
         self.weights = DeviceConst(weights.astype(np.int64))
 
-    def __call__(self, raw_r, raw_i, inv_nvar, track, keep=()):
+    def __call__(self, raw_r, raw_i, inv_nvar, track, keep=(), mark=None):
+        mark = mark or (lambda stage: None)
         dev = raw_r.device
         n_bch = self.plp.fec.n_bch
         (sr, si), _, _ = self.frontend(raw_r, raw_i, track[0], track[1],
                                        track[2], track[3])
+        mark("frontend")
         inv = torch.as_tensor(inv_nvar, dtype=torch.float32, device=dev)
         llrs = self.mf.syms(sr, si, inv)                 # (N, B, F)
         min_it = torch.where(inv >= FLOOR_INV_NVAR, 0, FLOOR_SWEEPS).to(
             torch.int32)
         wb = self.weights.on(dev)
         iters = torch.zeros((), dtype=torch.int32, device=dev)
+        mark("demod_llr")
         sums, oks, kept = [], [], {}
         for fi in range(self.n_frames):
             bits, it = self.decode(llrs[:, :, fi], min_it)
+            mark("ldpc")
             ok = self.bch_check(bits[:n_bch])
             byts = self.bb_pack(bits)                    # (kb8, B) int32
             sums.append(_wrap_i32((byts.long()[None] * wb).sum((1, 2))))
@@ -102,6 +109,7 @@ class Superstep:
             iters = iters + it
             if fi in keep:
                 kept[fi] = byts
+            mark("fec_tail")
         kept_bytes = (torch.stack([kept[fi] for fi in keep]) if keep else
                       torch.zeros((0,) + byts.shape, dtype=torch.int32,
                                   device=dev))

@@ -28,6 +28,7 @@ from sdr_receiver_dvb_t2_tpu.dvbt2.ldpc import _TABLE_KEY
 from sdr_receiver_dvb_t2_tpu.dvbt2.params import CodeRate, FECFrame
 from sdr_receiver_dvb_t2_tpu.ops import ldpc_pallas as qc
 from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as tl
+from sdr_receiver_dvb_t2_tpu_torch.tools import ldpc_layer_bench
 from sdr_receiver_dvb_t2_tpu_torch.utils.reference import from_reference as P_
 
 torch.set_num_threads(1)
@@ -226,3 +227,13 @@ def test_k2_k3_k4_kernels_equal_plain_on_card():
         for variant in ("vmem", "hbm"):
             dec = tl.make_decoder_nb(*P(frame, rate), 6, b, variant=variant)
             assert torch.equal(dec.kernel(v), dec.plain(v))
+
+
+@pytest.mark.cuda
+def test_all_codes_kernels_equal_plain_on_card():
+    """Every code at B=8: both exits, K4's body, the permuted orders."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    records = ldpc_layer_bench.check_all_codes(log=lambda _: None)
+    assert len({r["code"] for r in records}) == 13
+    assert all(r["max_abs_err"] == 0 for r in records)

@@ -93,9 +93,13 @@ def test_superstep_equals_jax_and_transmitted_ts():
     weights = tss.hash_weights(kb8, NB)
     step = tss.Superstep(R(p), R(plp), NB, F, FS, weights)
     inv = 100.0                                     # 20 dB: floor at 8
+    marks = []
     sums, oks, iters, byts = step(torch.from_numpy(raw[..., 0].copy()),
                                   torch.from_numpy(raw[..., 1].copy()), inv,
-                                  torch.from_numpy(track), keep=(0, 1))
+                                  torch.from_numpy(track), keep=(0, 1),
+                                  mark=marks.append)
+    # the stage marks a profiler hangs its events on
+    assert marks == ["frontend", "demod_llr"] + ["ldpc", "fec_tail"] * F
     r_sums, r_oks, r_iters, r_byts = _jax_superstep(p, plp, raw, inv, track,
                                                     weights)
     np.testing.assert_array_equal(byts.numpy(), r_byts)
