@@ -24,11 +24,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        C3/5), where some codewords must stay undecoded;
        K5 (fixed, bf16 LLRs staged in, bf16 c2v) at NORMAL C2/3 through
        `make_decoder_nb_fused_io`, the same two cases;
-       K6 (FFT stage 1 fused with the twiddle) at n=32768, 60 symbols, F
+       K6 (FFT stage 1 fused with the twiddle) on every n of `_FACTORS`
+       and at ragged symbol counts, then at n=32768, 60 symbols, F=32
        frames against its plain version within `fft_stage1.compare`'s
-       tolerance, stage 1 by K6 plus the stage-2 einsum against
-       torch.fft.fft, and K6's time beside the same function through bf16
-       torch.matmul.
+       tolerance, stage 1 by K6 plus the stage-2 product against
+       torch.fft.fft, and K6's time at F=32 and F=128 beside its bound
+       and the same function through bf16 torch.matmul.
      Then the layered kernel body on every code `qc_tables` knows (13) at
      B=8 (`tools/ldpc_layer_bench.check_all_codes`): 3 fixed sweeps in
      natural order through K3's and K4's doors, the adaptive exit in
@@ -155,6 +156,13 @@ def phase_build():
         log(f"[build] {name}.cu ptxas: {len(regs)} kernels, registers "
             f"{min(regs)}..{max(regs)}; {sum(b > 0 for b in spills)} of "
             f"{len(spills)} functions spill, at most {max(spills)} bytes")
+    from sdr_receiver_dvb_t2_tpu_torch.ops import fft_stage1
+    from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
+    plan = fft_stage1.plan(256, 128, FFT_FRAMES * mb.S)
+    log(f"[build] K6 at 256 x 128: {plan['warpgroups']} consumer "
+        f"warpgroups + 1 producer warp per CTA, {plan['smem']} B of dynamic "
+        f"shared memory (W1^T bands, a ring of {plan['stages']} stages, the "
+        f"output tiles), {plan['ctas']} persistent CTAs")
 
 
 def _diff(a, b):
@@ -293,59 +301,90 @@ def phase_fixed(tag, rate, variant, sigma_hard, seed):
     return {"max_abs_err": worst, **timed}
 
 
-def phase_k6(f):
-    """K6 at full width (n=32768 as 256 x 128, 60 symbols, `f` frames)
-    against its plain version within `fft_stage1.compare`'s tolerance (one
-    bf16 ulp of the larger magnitude plus 2^-18 of the plane's peak; under
-    1% of the elements differing at all); stage 1 by K6 plus the stage-2
-    einsum against torch.fft.fft; times of the kernel, the plain version
-    and the same function through bf16 torch.matmul."""
+def k6_bound(f, n1, n2):
+    """K6's least time at (f, 60, n1*n2): its bytes (y read and b written
+    once, bf16, and the tables) over the memory rate against its bf16
+    tensor operations over the tensor rate.  -> (ms, "bytes" or
+    "operations", bytes, operations)."""
+    from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
+    n = n1 * n2
+    byts = 2 * (4 * f * mb.S * n + 2 * n1 * n1 + 2 * n1 * n2)
+    ops = f * mb.S * (4 * 2 * n1 * n1 * n2 + 6 * n)
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", \
+        byts, ops
+
+
+def phase_k6(frames):
+    """K6 on every n of `_FACTORS` and at ragged symbol counts against its
+    plain version (`tools/fft_microbench.check_factors`), then at full
+    width (n=32768 as 256 x 128, 60 symbols, each F of `frames`) against
+    its plain version within `fft_stage1.compare`'s tolerance (one bf16 ulp
+    of the larger magnitude plus 2^-18 of the plane's peak; under 1% of
+    the elements differing at all); stage 1 by K6 plus the stage-2 product
+    against torch.fft.fft; times of the kernel and of the same function
+    through bf16 torch.matmul, beside the bound, at each F, and of the
+    plain version at the first.  -> the kernel's record at the first F."""
     from sdr_receiver_dvb_t2_tpu_torch.ops import fft_stage1, mxu_fft
     from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
+    t0 = time.time()
+    cases = mb.check_factors(log=log)
+    log(f"[K6 factors] {len(cases)} cases on {len(mxu_fft._FACTORS)} "
+        f"lengths within the tolerance in {time.time() - t0:.1f} s")
     n, s = mb.N, mb.S
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    xr = torch.randn((f, s, n), generator=gen, device="cuda")
-    xi = torch.randn((f, s, n), generator=gen, device="cuda")
     stage = fft_stage1.Stage1(n)
-    kr, ki = stage.kernel(xr, xi)
-    pr, pi = stage.plain(xr, xi)
-    torch.cuda.synchronize()
-    res = [fft_stage1.compare(kr, pr), fft_stage1.compare(ki, pi)]
-    err = max(r["max_abs_err"] for r in res)
-    frac = max(r["frac_differ"] for r in res)
-    beyond = sum(r["n_beyond"] for r in res)
-    log(f"[K6 vs plain] ({f}, {s}, {n}) as {stage.n1} x {stage.n2}: max "
-        f"|diff| {err:.4g} (peak {float(pr.float().abs().max()):.4g}), "
-        f"{100 * frac:.4f}% of elements differ, {beyond} beyond the "
-        f"tolerance")
-    if not all(r["ok"] for r in res):
-        raise RuntimeError("K6 disagrees with its plain version")
-    out_r, out_i = mxu_fft.stage2_carrier_major(kr[:2], ki[:2], n)
-    ref = torch.fft.fft(torch.complex(xr[:2].double(), xi[:2].double()),
-                        dim=-1).permute(2, 1, 0)
-    got = torch.complex(out_r.double(), out_i.double())
-    rel = float((got - ref).abs().pow(2).mean().sqrt()
-                / ref.abs().pow(2).mean().sqrt())
-    log(f"[K6 + stage 2 vs torch.fft.fft] relative RMS error {rel:.3e} "
-        f"(bound 1e-2: bf16 input, twiddled stage and output)")
-    if not rel < 1e-2:
-        raise RuntimeError("K6 plus stage 2 is not the FFT")
-    yr, yi = stage._input(xr, xi)
-    tabs = stage.tables("cuda")
-    k_ms = mb.cuda_ms(lambda: fft_stage1.fft_stage1_cuda(yr, yi, *tabs), 10)
-    p_ms = mb.cuda_ms(lambda: fft_stage1.stage1_plain(yr, yi, *tabs), 2)
-    l_ms = mb.cuda_ms(lambda: mb.stage1_matmul_bf16(yr, yi, *tabs), 10)
     n1, n2 = stage.n1, stage.n2
-    byts = 2 * (4 * f * s * n + 2 * n1 * n1 + 2 * n1 * n2)
-    ops = f * s * (4 * 2 * n1 * n1 * n2 + 6 * n)
-    t_b, t_o = byts / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS
-    bound = 1e3 * max(t_b, t_o)
-    log(f"[K6 timing] kernel {k_ms:.3f} ms, plain (f32 matmul) {p_ms:.3f} "
-        f"ms, bf16 torch.matmul route {l_ms:.3f} ms, bound {bound:.3f} ms "
-        f"({byts / 1e6:.0f} MB, {ops / 1e9:.0f} GFLOP)")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": "bytes" if t_b >= t_o
-            else "operations", "library_ms": l_ms}
+    record = None
+    for f in frames:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        xr = torch.randn((f, s, n), generator=gen, device="cuda")
+        xi = torch.randn((f, s, n), generator=gen, device="cuda")
+        yr, yi = stage._input(xr, xi)
+        tabs, packed = stage.tables("cuda"), stage.packed("cuda")
+        k_ms = mb.cuda_ms(
+            lambda: fft_stage1.fft_stage1_cuda(yr, yi, *packed), 10)
+        l_ms = mb.cuda_ms(lambda: mb.stage1_matmul_bf16(yr, yi, *tabs), 10)
+        bound, by, byts, ops = k6_bound(f, n1, n2)
+        plan = fft_stage1.plan(n1, n2, f * s)
+        log(f"[K6 timing] F={f}: kernel {k_ms:.3f} ms = {k_ms / f:.4f} "
+            f"ms/frame, bf16 torch.matmul route {l_ms:.3f} ms = "
+            f"{l_ms / f:.4f} ms/frame, bound {bound:.3f} ms ({by}; "
+            f"{byts / 1e6:.0f} MB, {ops / 1e9:.0f} GFLOP), "
+            f"{100 * bound / k_ms:.0f}% of the bound's rate; launch "
+            f"{plan['ctas']} CTAs x {plan['warpgroups']} warpgroups, "
+            f"tile {plan['tile']}, {plan['stages']} stages, "
+            f"{plan['smem']} B shared")
+        if record is not None:
+            continue
+        kr, ki = stage.kernel(xr, xi)
+        pr, pi = stage.plain(xr, xi)
+        torch.cuda.synchronize()
+        res = [fft_stage1.compare(kr, pr), fft_stage1.compare(ki, pi)]
+        err = max(r["max_abs_err"] for r in res)
+        frac = max(r["frac_differ"] for r in res)
+        beyond = sum(r["n_beyond"] for r in res)
+        log(f"[K6 vs plain] ({f}, {s}, {n}) as {n1} x {n2}: max |diff| "
+            f"{err:.4g} (peak {float(pr.float().abs().max()):.4g}), "
+            f"{100 * frac:.4f}% of elements differ, {beyond} beyond the "
+            f"tolerance")
+        if not all(r["ok"] for r in res):
+            raise RuntimeError("K6 disagrees with its plain version")
+        out_r, out_i = mxu_fft.stage2_carrier_major(kr[:2], ki[:2], n)
+        ref = torch.fft.fft(torch.complex(xr[:2].double(), xi[:2].double()),
+                            dim=-1).permute(2, 1, 0)
+        got = torch.complex(out_r.double(), out_i.double())
+        rel = float((got - ref).abs().pow(2).mean().sqrt()
+                    / ref.abs().pow(2).mean().sqrt())
+        log(f"[K6 + stage 2 vs torch.fft.fft] relative RMS error {rel:.3e} "
+            f"(bound 1e-2: bf16 input, twiddled stage and output)")
+        if not rel < 1e-2:
+            raise RuntimeError("K6 plus stage 2 is not the FFT")
+        p_ms = mb.cuda_ms(lambda: fft_stage1.stage1_plain(yr, yi, *tabs), 2)
+        log(f"[K6 timing] F={f}: plain version (f32 matmul) {p_ms:.3f} ms")
+        record = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                  "bound_ms": bound, "bound_by": by, "library_ms": l_ms}
+        del kr, ki, pr, pi
+    return record
 
 
 def phase_kernels():
@@ -364,7 +403,7 @@ def phase_kernels():
         "K3": phase_fixed("K3", CodeRate.C2_3, "vmem", 0.74, 7),
         "K4": phase_fixed("K4", CodeRate.C3_5, "hbm", 0.82, 8),
         "K5": phase_fixed("K5", CodeRate.C2_3, "fused_io", 0.74, 9),
-        "K6": phase_k6(FFT_FRAMES),
+        "K6": phase_k6((FFT_FRAMES, 4 * FFT_FRAMES)),
     }
 
 
@@ -494,7 +533,7 @@ def phase_fft_tool(f):
     # the 2^-9 input and intermediate roundings
     limits = {"cufft f32 + bf16 cast + transpose": 1e-2,
               "matmul fft bf16": 2e-2, "matmul fft f32": 1e-4,
-              "k6 stage 1 + stage-2 einsum": 1e-2}
+              "k6 stage 1 + stage 2": 1e-2}
     for name, r in table.items():
         err = "" if r["rel_err"] is None else f", err {r['rel_err']:.2e}"
         log(f"[fft microbench F={f}] {name}: {r['ms']:.3f} ms = "

@@ -50,13 +50,27 @@ def _planes(z: np.ndarray, dtype, device):
         device=device, dtype=dtype) for p in (z.real, z.imag))
 
 
-def _mm(eq: str, a: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
-    """einsum accumulated in f32 and stored in `dt` (bf16 operands are
-    exact in f32, so a bf16 product summed in f32 is the f32 einsum of the
-    widened operands, up to the order of the sum)."""
+def _prod(a: torch.Tensor, b: torch.Tensor, dt, op=torch.matmul):
+    """op(a, b), a product accumulated in f32 and stored in `dt`.  The CPU
+    has no bf16 product with f32 accumulation, so there bf16 operands are
+    widened first (exact in f32: the same product up to the order of the
+    sum)."""
     if dt == torch.bfloat16 and a.device.type == "cpu":
-        return torch.einsum(eq, a.float(), w.float()).to(dt)
-    return torch.einsum(eq, a, w)
+        return op(a.float(), b.float()).to(dt)
+    return op(a, b)
+
+
+def _mm(eq: str, a: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
+    """torch.einsum(eq, a, w) through `_prod`."""
+    return _prod(a, w, dt, functools.partial(torch.einsum, eq))
+
+
+def _stage1(y: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
+    """The first stage's product "fsnm,nk->fskm" as one batched product
+    w^T (k, n) . y (n, m) per symbol: accumulated in f32, stored in `dt`
+    and contiguous (the einsum's result is laid out (f, s, m, k), and the
+    second stage would have to copy it across its innermost axis)."""
+    return _prod(w.t(), y, dt)
 
 
 def fft_stages(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -97,14 +111,27 @@ def fft_stages_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
 def stage2_carrier_major(br: torch.Tensor, bi: torch.Tensor, n: int):
     """The second Cooley-Tukey stage of `fft_carrier_major_planar` on its
     own: twiddled stage-1 output (F, S, k1, n2) -> (n, S, F) spectra in
-    carrier-major layout, in the dtype of `br`."""
+    carrier-major layout, in the dtype of `br`.
+
+    The JAX package writes it as the einsum "fskm,ml->lksf".  Here the
+    planes are first copied to (k1, S, F, m), a copy of whole rows of m,
+    and each product is one matrix product W2^T (l, m) . b^T (m, k1 S F)
+    whose result is already (l, k1, S, F): the carrier-major layout with
+    no copy after it.  (An einsum's permuted result has to be copied with
+    F, its innermost axis, strided by S*n.)  Each product is accumulated in
+    f32 and stored in the planes' dtype, then the two are combined in it,
+    as in the einsum route."""
     _, w2, _ = _tables(n)
     dt = br.dtype
-    f, s = br.shape[0], br.shape[1]
-    w2r, w2i = _planes(w2, dt, br.device)
-    eq = "fskm,ml->lksf"
-    out_r = _mm(eq, br, w2r, dt) - _mm(eq, bi, w2i, dt)   # (k2, k1, S, F)
-    out_i = _mm(eq, br, w2i, dt) + _mm(eq, bi, w2r, dt)
+    f, s, n1, n2 = br.shape
+    w2r, w2i = _planes(w2, dt, br.device)                    # (m, l)
+    pr = br.permute(2, 1, 0, 3).reshape(n1 * s * f, n2)      # (k1 S F, m)
+    pi = bi.permute(2, 1, 0, 3).reshape(n1 * s * f, n2)
+
+    def mm(b, w):                                # -> (l, k1 S F) in dt
+        return _prod(w.t(), b.t(), dt)
+    out_r = mm(pr, w2r) - mm(pi, w2i)
+    out_i = mm(pr, w2i) + mm(pi, w2r)
     # row-major (k2, k1) flatten IS the DFT index k = k1 + n1*k2
     return out_r.reshape(n, s, f), out_i.reshape(n, s, f)
 
@@ -112,8 +139,8 @@ def stage2_carrier_major(br: torch.Tensor, bi: torch.Tensor, n: int):
 def fft_carrier_major_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
                              dtype=None):
     """(F, S, n) planar time-domain symbols -> (n, S, F) planar spectra in
-    CARRIER-MAJOR layout: the second stage writes k-major through a
-    transposed einsum ("fskm,ml->lksf")."""
+    CARRIER-MAJOR layout: the second stage writes k-major (the JAX
+    package's transposed einsum "fskm,ml->lksf", `stage2_carrier_major`)."""
     n1, n2 = _FACTORS[n]
     w1, _, tw = _tables(n)
     dt = dtype or xr.dtype
@@ -123,9 +150,8 @@ def fft_carrier_major_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
     yi = xi.to(dt).reshape(f, s, n1, n2)
     w1r, w1i = _planes(w1, dt, dev)
     twr, twi = _planes(tw, dt, dev)
-    eq = "fsnm,nk->fskm"
-    ar = _mm(eq, yr, w1r, dt) - _mm(eq, yi, w1i, dt)
-    ai = _mm(eq, yr, w1i, dt) + _mm(eq, yi, w1r, dt)
+    ar = _stage1(yr, w1r, dt) - _stage1(yi, w1i, dt)
+    ai = _stage1(yr, w1i, dt) + _stage1(yi, w1r, dt)
     br = ar * twr - ai * twi
     bi = ar * twi + ai * twr
     return stage2_carrier_major(br, bi, n)
