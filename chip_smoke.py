@@ -48,7 +48,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      capture, then the superstep at clean and at 20 dB.  Gates: every
      codeword BCH-clean, per-frame hashes equal to the host expectation,
      the TS reassembled from all frames bit-exact, K1 launched.  Each
-     point also prints the step's device time by stage (`superstep_split`:
+     point also prints the step's device time by stage (`bench.stage_split`:
      CUDA events at the stage marks of `Superstep.__call__`).  Then K5's
      path, its front door on the superstep's own frame-0 LLRs (every
      codeword BCH-clean, the BB bytes equal to the transmitted ones), and
@@ -68,14 +68,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      `DeviceFrontendChain` with its state on the CUDA device, every frame
      decoded (all but at most the last at 10 Msps, whose tail the
      polyphase halo holds back), no TS errors, the TS bit-exact.
-  6. no jax module and no module of the JAX package is loaded.
+  6. the port's bench (`bench.run`): F=128 distinct frames synthesised
+     on the card (`utils/benchgen.make_frame_synth`), impaired there,
+     tracking state estimated by the product's acquisition, then the
+     chained superstep at clean, 19 dB, 20 dB and 19 dB with a 0.15@32
+     echo.  Gates at every point: all 128 per-frame hashes, every codeword
+     BCH-clean, the rotating frame's TS bit-exact, K1 launched.  Prints
+     each point's median of 3 chains with its spread, the peak device
+     memory, the device's busy share over one clean step and the bench's
+     record.
+  7. no jax module and no module of the JAX package is loaded.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
@@ -98,6 +106,7 @@ OPS_PER_EDGE_SWEEP = 15
 OPS_PER_EDGE_CHECK = 2
 FFT_FRAMES = 32            # frames of the K6 check and the FFT microbench
 STREAM_FRAMES = 4          # frames of the vendor-rate streaming captures
+BENCH_FRAMES = 128         # frames per superstep of the bench phase
 STREAM_TAIL = 4096         # samples of the next frame played after the last
 # the noise cases of the adaptive kernels: (label, sigma, traced floor)
 NOISE_CASES = (("clean", 0.0, 0), ("sigma 0.65", 0.65, 0),
@@ -136,10 +145,8 @@ def ldpc_bound(code, batch, in_bytes, sweeps, checks=0):
 
 
 def phase_build():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    from sdr_receiver_dvb_t2_tpu_torch import bench
+    log(bench.card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     from sdr_receiver_dvb_t2_tpu_torch import _build
@@ -407,28 +414,8 @@ def phase_kernels():
     }
 
 
-def superstep_split(step, raw, inv, track, reps=3):
-    """Device ms per stage of one superstep: a CUDA event at every stage
-    mark of `Superstep.__call__`, the gaps summed by stage, the mean of
-    `reps` steps after one warm-up."""
-    step(*raw, inv, track)
-    total = {}
-    for _ in range(reps):
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
-
-        def mark(stage):
-            events.append((stage, torch.cuda.Event(enable_timing=True)))
-            events[-1][1].record()
-
-        step(*raw, inv, track, mark=mark)
-        torch.cuda.synchronize()
-        for (_, e0), (stage, e1) in zip(events, events[1:]):
-            total[stage] = total.get(stage, 0.0) + e0.elapsed_time(e1) / reps
-    return total
-
-
 def phase_slice(n_frames):
+    from sdr_receiver_dvb_t2_tpu_torch import bench
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered
     from sdr_receiver_dvb_t2_tpu_torch.rx import superstep as ss_mod
     from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
@@ -483,7 +470,7 @@ def phase_slice(n_frames):
             f"{dt:.2f} ms = {dt / n_frames:.3f} ms/frame")
         if not (bch_ok and hash_ok and ts_ok):
             raise RuntimeError(f"slice gate failed at {lab}")
-        split = superstep_split(step, raws[lab], inv, track)
+        split = bench.stage_split(step, raws[lab], inv, track)
         log(f"[slice {lab}] device ms per superstep by stage: "
             + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
 
@@ -518,6 +505,47 @@ def phase_slice(n_frames):
     if ok5 != NUM_BLOCKS or not same5 or err5 != 0 or launches["K5"] == 0:
         raise RuntimeError("K5 path gate failed")
     return launches, max(err, err5)
+
+
+def phase_bench(n_frames):
+    """The port's bench (`python -m sdr_receiver_dvb_t2_tpu_torch.bench`)
+    through `bench.run` at the headline mode: n_frames distinct frames
+    synthesised on the card, the chained superstep at clean, 19 dB, 20 dB
+    and 19 dB with the 0.15@32 echo, each gated (every frame's hash, every
+    codeword BCH-clean, the rotating frame's TS bit-exact) and timed as a
+    median of 3 chains.  -> (launch counts of the run, its record)."""
+    from sdr_receiver_dvb_t2_tpu_torch import bench
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    counts = _zero_counts()
+    rec = bench.run(frames=n_frames, snr=19.0, multipath=(0.15, 32),
+                    device="cuda", log=lambda msg: log(f"[bench] {msg}"))
+    torch.cuda.synchronize()
+    launches = _read_counts(counts)
+    busy = rec["busy_clean"]
+    for label, pt in rec["points"].items():
+        log(f"[bench {label}] F={n_frames}: {pt['ms_per_frame']:.3f} "
+            f"ms/frame (median of 3, spread {pt['spread_pct']:.1f}%), "
+            f"{pt['msamples_per_s']:.2f} Msamples/s = "
+            f"{pt['x_real_time']:.2f}x real time, LDPC "
+            f"{pt['sweeps_per_frame']:.2f} sweeps/frame; hashes "
+            f"{'ok' if pt['hashes_ok'] else 'FAIL'}, BCH clean "
+            f"{pt['bch_clean_min']}/{NUM_BLOCKS} at least, TS bit-exact "
+            f"{pt['ts_ok']}")
+    log(f"[bench] F={n_frames}: peak device memory "
+        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB; one clean step "
+        f"{busy['device_ms_per_step']:.2f} ms of device time in "
+        f"{busy['profiled_step_ms']:.2f} ms ({100 * busy['busy_share']:.1f}%"
+        f" busy), host waits for the device in a step: "
+        f"{busy['host_sync'] or 'none'}; launches {launches}; "
+        f"{time.time() - t0:.1f} s")
+    failed = [k for k, v in rec["points"].items() if not v["ok"]]
+    if failed:
+        raise RuntimeError(f"bench gates failed at {failed}")
+    if launches["K1"] == 0:
+        raise RuntimeError("the bench never launched K1")
+    log(json.dumps({"bench": rec}))
+    return launches, rec
 
 
 def phase_fft_tool(f):
@@ -783,6 +811,7 @@ def main():
         p, plp, dataclasses.replace(plp, rate=CodeRate.C3_5),
         args.rx_frames, "cuda")
     fe_launches = phase_stream_frontend(p, plp, "cuda")
+    bench_launches, _ = phase_bench(BENCH_FRAMES)
     gate_no_foreign_modules()
     names = {"K1": "ldpc_layered_vmem_adaptive_io",
              "K2": "ldpc_layered_vmem_adaptive",
@@ -794,7 +823,8 @@ def main():
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
         rec = dict(checks[k])
-        n = launches[k] + rx_launches[k] + fe_launches[k]
+        n = (launches[k] + rx_launches[k] + fe_launches[k]
+             + bench_launches[k])
         if n == 0:
             raise RuntimeError(f"{k} was never launched on a main path")
         if k in ("K1", "K5"):

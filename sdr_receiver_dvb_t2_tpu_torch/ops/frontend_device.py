@@ -25,6 +25,8 @@ import math
 import numpy as np
 import torch
 
+from .._device import DeviceConst
+
 
 # --------------------------------------------------------------------------
 # Generalized-Farrow tap bank (port's copy: the JAX module imports jax)
@@ -267,6 +269,10 @@ def make_frontend_symbols(n_sym: int, sym_size: int, guard: int, fs: float,
     cf = _bank(half)
     slice_len = fft + 2 * half + 2
     correct = _make_slice_corrector(fft, slice_len, cf)
+    # first post-guard sample of each emitted symbol, clean coordinates
+    # (copied to a device once: a copy from host memory per call would
+    # wait for the device)
+    k0_const = DeviceConst(p1_len + order * sym_size + guard)
 
     def frontend(raw_r, raw_i, cfo_hz, ratio, pos0, phase0):
         f, n_in = raw_r.shape
@@ -281,8 +287,7 @@ def make_frontend_symbols(n_sym: int, sym_size: int, guard: int, fs: float,
         xi = torch.nn.functional.pad(raw_i, (0, max(pad, 0)))
         k_local = torch.arange(fft, dtype=torch.float32, device=dev)
         delta = ratio - 1.0
-        # first post-guard sample of each emitted symbol, clean coordinates
-        k0 = torch.as_tensor(p1_len + order * sym_size + guard, device=dev)
+        k0 = k0_const.on(dev)
         r0 = pos0 + k0.float() * delta                   # (n_sym,)
         r = r0[:, None] + k_local * delta
         b = torch.floor(torch.minimum(r0, r0 + (fft - 1) * delta))
@@ -329,6 +334,13 @@ def make_resampler(n_out: int, half: int = 8, chunk: int = CHUNK):
         return acc.reshape(f, n_chunks * chunk, 2)[:, :n_out]
 
     return resample
+
+
+def frontend_raw_len(n_samp: int, sco: float, half: int = 8) -> int:
+    """Raw device-rate samples a frame of n_samp corrected samples needs
+    (the impairer/corrector position-calibration convention: 2*half clean
+    pre-pad eaten as left context, plus interpolation slack)."""
+    return int(np.ceil((n_samp + 2 * half) * (1.0 + sco))) + 4 * half
 
 
 def make_impairer(n_raw: int, fs: float, half: int = 8):
@@ -384,9 +396,13 @@ def make_rational_resampler(num: int, den: int, half: int = 8):
 
     Output k = a*den + r reads input positions a*num + floor(r*num/den) + j
     with a fixed fractional phase per r, so each of the den phases is
-    2*half+1 static column slices of the input reshaped into num-sample
-    rows (plus a spill overlap), weighted by scalars evaluated from the
-    fitted Farrow bank at build time.
+    2*half+1 static column slices of a window of `spill` input samples
+    starting at a*num (windows overlap where spill > num), weighted by
+    scalars evaluated from the fitted Farrow bank at build time.  The
+    window holds the whole stencil at every ratio: at 5/4 and 7/4 (the
+    10 Msps AirSpy on 7 and 5 MHz channels) it spans more than two rows,
+    where the TPU version, which extends a row by the next row only,
+    clamps the columns beyond and its output differs from this one.
 
     Returns (resample, spill): resample(x (F, n_in)) -> ((F, A*den), A)
     with A = (n_in - spill - num) // num whole input rows consumed; the
@@ -405,22 +421,14 @@ def make_rational_resampler(num: int, den: int, half: int = 8):
             row.append(w)
         wtab.append(row)
     spill = max(offs) + n_taps + 2
-    if spill > 2 * num:
-        # a row is extended by the next row only: the stencil of the last
-        # phase must end within two rows
-        raise ValueError(f"rational resampler {num}/{den}: the {n_taps}-tap "
-                         f"stencil does not fit two {num}-sample rows")
 
     def resample(x):
         f, n_in = x.shape
         a_blocks = (n_in - spill - num) // num
         if a_blocks <= 0:
             return x.new_zeros((f, 0)), 0
-        xe = x[:, :a_blocks * num].reshape(f, a_blocks, num)
-        if spill > num:
-            ext = x[:, num:num + a_blocks * num].reshape(
-                f, a_blocks, num)[:, :, :spill - num]
-            xe = torch.cat([xe, ext], 2)
+        # (F, A, spill): window a is x[a*num : a*num + spill]
+        xe = x[:, :(a_blocks - 1) * num + spill].unfold(1, spill, num)
         # all den phases at once, tap by tap in the TPU version's order:
         # phase r reads columns offs[r] + t of its row
         cols = torch.as_tensor(offs, device=x.device)
@@ -486,7 +494,9 @@ class DeviceFrontendChain:
     ~0.012 (the 9.2 Msps SdrPlay/Pluto rates, +0.625%, and elementary-rate
     captures with clock error); wider exact small rationals of the
     elementary rate (the 10 Msps AirSpy's 35/32) get a polyphase stage
-    (`make_rational_resampler`) ahead of the drift stage.  Anything else
+    (`make_rational_resampler`, whose window holds the stencil at any
+    ratio: also 5/4 and 7/4, 10 Msps on 7 and 5 MHz channels) ahead of
+    the drift stage.  Anything else
     raises UnsupportedRatio (a ValueError) and keeps the host chain
     (StreamingReceiver catches that one error, logs it and falls back)."""
 

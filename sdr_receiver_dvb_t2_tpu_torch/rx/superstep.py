@@ -20,7 +20,8 @@ from ..dvbt2.params import PLPParams, T2Params
 from .._device import DeviceConst
 from ..ops import fec_device
 from ..ops import frontend_device as fdev
-from ..ops.ldpc_layered import make_adaptive_decoder_nb_fused_io
+from ..ops.ldpc_layered import (make_adaptive_decoder_nb_fused_io,
+                                make_decoder_nb)
 from .fusedpath import MultiFramePath
 
 # below ~25 dB (inv_nvar < 316) convergence takes >= 10 sweeps, so the
@@ -65,10 +66,15 @@ class Superstep:
     are the hash weights (`hash_weights`).  `mark`, when given, is called
     with a stage's name ("frontend", "demod_llr", "ldpc", "fec_tail") each
     time that stage's work has been enqueued (a profiler records an event
-    there; the LDPC and the tail report once per frame)."""
+    there; the LDPC and the tail report once per frame).
+
+    `fixed_iters` > 0 swaps the adaptive decoder (K1) for `fixed_iters`
+    sweeps of the fixed one (`make_decoder_nb`: K3 at C2/3), which ignores
+    the floor; the sweep count is then `fixed_iters` per frame."""
 
     def __init__(self, p: T2Params, plp: PLPParams, num_blocks: int,
-                 n_frames: int, fs: float, weights: np.ndarray):
+                 n_frames: int, fs: float, weights: np.ndarray,
+                 fixed_iters: int = 0):
         self.p, self.plp = p, plp
         self.num_blocks, self.n_frames = num_blocks, n_frames
         self.mf = MultiFramePath(p, plp, num_blocks, n_frames,
@@ -76,9 +82,14 @@ class Superstep:
         self.frontend = fdev.make_frontend_symbols(
             p.len_frame, p.symbol_size, p.guard_size, fs, half=HALF,
             sym_order=self.mf.demod.sym_order, out_dtype=torch.bfloat16)
-        self.decode = make_adaptive_decoder_nb_fused_io(
-            plp.fec_frame, plp.rate, max_iters=MAX_SWEEPS, check_every=1,
-            batch=num_blocks, layer_order="reversed")
+        self.fixed_iters = fixed_iters
+        if fixed_iters:
+            self.decode = make_decoder_nb(plp.fec_frame, plp.rate,
+                                          iters=fixed_iters, batch=num_blocks)
+        else:
+            self.decode = make_adaptive_decoder_nb_fused_io(
+                plp.fec_frame, plp.rate, max_iters=MAX_SWEEPS,
+                check_every=1, batch=num_blocks, layer_order="reversed")
         self.bch_check = fec_device.make_bch_check_nb(plp.fec_frame,
                                                       plp.rate)
         self.bb_pack = fec_device.make_bb_bytes_nb(plp.fec_frame, plp.rate)
@@ -92,7 +103,9 @@ class Superstep:
                                        track[2], track[3])
         mark("frontend")
         inv = torch.as_tensor(inv_nvar, dtype=torch.float32, device=dev)
-        llrs = self.mf.syms(sr, si, inv)                 # (N, B, F)
+        # one frame-major copy (F, N, B): each decode then reads a
+        # contiguous (N, B) block instead of a stride-F gather of its own
+        llrs = self.mf.syms(sr, si, inv).permute(2, 0, 1).contiguous()
         min_it = torch.where(inv >= FLOOR_INV_NVAR, 0, FLOOR_SWEEPS).to(
             torch.int32)
         wb = self.weights.on(dev)
@@ -100,7 +113,10 @@ class Superstep:
         mark("demod_llr")
         sums, oks, kept = [], [], {}
         for fi in range(self.n_frames):
-            bits, it = self.decode(llrs[:, :, fi], min_it)
+            if self.fixed_iters:
+                bits, it = self.decode(llrs[fi]), self.fixed_iters
+            else:
+                bits, it = self.decode(llrs[fi], min_it)
             mark("ldpc")
             ok = self.bch_check(bits[:n_bch])
             byts = self.bb_pack(bits)                    # (kb8, B) int32

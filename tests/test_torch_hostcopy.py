@@ -7,8 +7,9 @@ tx,rx,utils,io}) against the JAX package's modules it was copied from.
 (b) `utils/reference.params_from_reference` carries every mode the tests
     use across the packages, by field and enum name.
 (c) Same seed, same output: the port's `T2Modulator` gives the JAX
-    package's samples exactly, and the port's host `T2Receiver` the same TS
-    bytes and statistics.
+    package's samples exactly, the port's host `T2Receiver` the same TS
+    bytes and statistics, and the port's T2-MI gateway and player the same
+    T2-MI stream and waveform.
 """
 import dataclasses
 import inspect
@@ -40,19 +41,25 @@ COPIED = [
     "dvbt2/__init__.py", "dvbt2/params.py", "dvbt2/_etsi_tables.py",
     "dvbt2/ldpc.py", "dvbt2/bch.py", "dvbt2/bbframe.py",
     "dvbt2/interleavers.py", "dvbt2/tables.py", "dvbt2/l1.py",
-    "dvbt2/inband.py",
+    "dvbt2/inband.py", "dvbt2/t2mi.py",
     "native/__init__.py", "native/ingest.cpp", "native/build.sh",
     "tx/__init__.py", "tx/ofdm.py", "tx/fec.py", "tx/frame.py",
-    "tx/modulator.py",
+    "tx/modulator.py", "tx/cli.py", "tx/mux.py", "tx/t2mi.py",
     "rx/demod.py", "rx/decode.py", "rx/p1_detect.py", "rx/frontend.py",
     "rx/receiver.py",
     "utils/loops.py", "utils/metrics.py", "utils/checkpoint.py",
+    "utils/live.py",
     "io/__init__.py", "io/iq.py", "io/ts_io.py", "io/devices.py",
     "io/vendor.py", "io/net.py", "io/control.py",
 ]
 
 # The deliberate differences: (text in the JAX package, text in the port).
 DELIBERATE = {
+    # the port's modulator CLI runs from the port's package
+    "tx/cli.py": [
+        ("    python -m sdr_receiver_dvb_t2_tpu.tx.cli input.ts",
+         "    python -m sdr_receiver_dvb_t2_tpu_torch.tx.cli input.ts"),
+    ],
     # the streaming loop builds the port's chain on the receiver's device
     "io/devices.py": [
         ("            # the device receive path corrects samples with the "
@@ -294,3 +301,31 @@ def test_host_receiver_equals_jax_package(case):
     assert a.cfo_hz == b.cfo_hz and a.sco_ppm == b.sco_ppm
     assert type(mine.params) is tparams.T2Params
     assert mine.params == params_from_reference(ref.params)
+
+
+def test_t2mi_loopback_equals_jax_package():
+    """TS -> the port's T2-MI gateway (`tx/t2mi` over `dvbt2/t2mi`) -> the
+    port's playout: the T2-MI transport stream equals the JAX package's
+    byte for byte, the decapsulated BB frames equal the ones the gateway
+    scheduled, and the played waveform equals the JAX player's and the
+    direct modulator's sample for sample."""
+    from sdr_receiver_dvb_t2_tpu.tx import t2mi as jt2mi
+    from sdr_receiver_dvb_t2_tpu_torch.tx import t2mi as tt2mi
+    p, plp, ts = _loopback_inputs(seed=4)
+    ref_ts, ref_out = jt2mi.T2MIGateway(p, [plp]).build(ts, 2)
+    mine_ts, mine_out = tt2mi.T2MIGateway(
+        params_from_reference(p), [params_from_reference(plp)]).build(ts, 2)
+    assert mine_ts.dtype == ref_ts.dtype and mine_ts.shape[1] == 188
+    np.testing.assert_array_equal(mine_ts, ref_ts)
+    ref_play, mine_play = jt2mi.T2MIPlayer(ref_ts), tt2mi.T2MIPlayer(mine_ts)
+    assert (mine_play.ts_drops, mine_play.bad_crc) == (0, 0)
+    assert len(mine_play.frames) == len(ref_play.frames) == 2
+    for a, b in zip(mine_play.frames, ref_play.frames):
+        assert a["frame_idx"] == b["frame_idx"]
+        for pid, bbs in b["plps"].items():
+            np.testing.assert_array_equal(np.stack(a["plps"][pid]),
+                                          np.stack(bbs))
+    wave = mine_play.waveform().samples
+    np.testing.assert_array_equal(wave, ref_play.waveform().samples)
+    np.testing.assert_array_equal(wave, mine_out.samples)
+    np.testing.assert_array_equal(mine_out.samples, ref_out.samples)

@@ -121,12 +121,119 @@ def test_rational_resampler_equals_jax(num, den):
     assert short.shape == (2, 0) and n0 == 0
 
 
-def test_rational_resampler_refuses_short_rows():
-    """5/4: the 17-tap stencil spans more than two 5-sample rows, which
-    the row-plus-next-row layout cannot serve (the JAX version indexes
-    out of range there, which JAX clamps silently)."""
-    with pytest.raises(ValueError, match="does not fit"):
-        tf.make_rational_resampler(5, 4, half=HALF)
+def _rows_form(num, den, x):
+    """The resampler as it was built before windows: each num-sample row
+    extended by the first spill - num samples of the next row (it served
+    only stencils that end within two rows)."""
+    fn, spill = tf.make_rational_resampler(num, den, half=HALF)
+    assert spill <= 2 * num
+    f, n_in = x.shape
+    a = (n_in - spill - num) // num
+    xe = x[:, :a * num].reshape(f, a, num)
+    if spill > num:
+        ext = x[:, num:num + a * num].reshape(f, a, num)[:, :, :spill - num]
+        xe = torch.cat([xe, ext], 2)
+    cf = tf._bank(HALF)
+    offs = [(r * num) // den for r in range(den)]
+    w = torch.tensor([[_horner64(cf_t, (r * num) / den - offs[r])
+                       for cf_t in cf] for r in range(den)], dtype=x.dtype)
+    cols = torch.as_tensor(offs)
+    acc = None
+    for t in range(len(cf)):
+        term = xe[:, :, cols + t] * w[:, t]
+        acc = term if acc is None else acc + term
+    return acc.reshape(f, a * den), a
+
+
+def _horner64(cf_t, mu):
+    w = 0.0
+    for c in cf_t:
+        w = w * mu + c
+    return w
+
+
+@pytest.mark.parametrize("num,den", [(35, 32), (65, 64)])
+def test_rational_resampler_windows_equal_the_row_form(num, den):
+    """Where the stencil ends within two rows, the windowed form reads the
+    same samples with the same weights in the same order: bit-equal to the
+    row-plus-next-row form (which test_rational_resampler_equals_jax holds
+    against JAX)."""
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.stack([_bandlimited(4000, 50 + i) for i in range(2)]).real,
+        np.float32))
+    fn, _ = tf.make_rational_resampler(num, den, half=HALF)
+    got, n = fn(x)
+    want, n_rows = _rows_form(num, den, x)
+    assert n == n_rows > 0
+    assert torch.equal(got, want)
+
+
+TONE = 0.013           # cycles per input sample, inside the fitted band
+
+
+def _tone_error(num, den, n_in=6000):
+    """Resample a complex tone (real and imaginary planes as two rows) and
+    compare with the ideal tone at the output grid k*num/den, after one
+    complex gain that absorbs the stencil's constant delay.
+    -> (output, max |error| relative to the tone's amplitude)."""
+    n = np.arange(n_in)
+    tone = np.exp(2j * np.pi * TONE * n)
+    x = torch.from_numpy(np.stack([tone.real, tone.imag]).astype(np.float32))
+    fn, _ = tf.make_rational_resampler(num, den, half=HALF)
+    y, _ = fn(x)
+    y = y[0].double().numpy() + 1j * y[1].double().numpy()
+    ideal = np.exp(2j * np.pi * TONE * np.arange(len(y)) * num / den)
+    gain = np.vdot(ideal, y) / len(y)
+    return y, np.abs(y - gain * ideal).max() / abs(gain)
+
+
+@pytest.mark.parametrize("num,den", [(5, 4), (7, 4)])
+def test_rational_resampler_long_stencils(num, den):
+    """5/4 and 7/4 (10 Msps on 7 and 5 MHz channels): the 17-tap stencil
+    spans more than two rows.  The output equals a float64 NumPy evaluation
+    of the same stencil (every output k = a*den + r is the sum over taps t
+    of w_t(mu_r) x[a*num + floor(r*num/den) + t]) to f32 rounding, and a
+    tone comes through as accurately as at 35/32 (within 2x of its error).
+    The JAX version clamps the stencil's columns beyond two rows, so the
+    port's output, and a TS decoded from it, may differ from the JAX
+    receiver's at these ratios."""
+    x = np.stack([_bandlimited(3000, 60 + i) for i in range(2)]).real
+    fn, spill = tf.make_rational_resampler(num, den, half=HALF)
+    assert spill > 2 * num
+    got, a = fn(torch.from_numpy(x.astype(np.float32)))
+    cf = tf._bank(HALF)
+    want = np.zeros((2, a * den))
+    for r in range(den):
+        off, mu = (r * num) // den, (r * num) / den - (r * num) // den
+        for t, cf_t in enumerate(cf):
+            want[:, r::den] += _horner64(cf_t, mu) * x[
+                :, off + t:off + t + (a - 1) * num + 1:num]
+    assert a > 0 and got.shape == (2, a * den)
+    assert np.abs(got.numpy() - want).max() / np.abs(want).std() < RTOL
+    _, err = _tone_error(num, den)
+    _, err_35 = _tone_error(35, 32)
+    assert err < 2 * err_35, (err, err_35)
+
+
+def test_chain_builds_or_refuses_at_every_vendor_rate_and_bandwidth():
+    """Every vendor rate x channel bandwidth either builds the device
+    chain or is refused with UnsupportedRatio (host chain); 10 Msps on 7
+    and 5 MHz channels now build, with the polyphase stage at 5/4 and
+    7/4."""
+    from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import Bandwidth
+    built = {}
+    for bw in Bandwidth:
+        for rate in sorted(set(hostfe.DEVICE_RATES.values())):
+            try:
+                chain = tf.DeviceFrontendChain(rate, bw.sample_rate, 4096,
+                                               device="cpu")
+            except tf.UnsupportedRatio:
+                continue
+            built[bw.name, rate] = chain._rat
+    assert built[("BW_7", 10.0e6)] == (5, 4)
+    assert built[("BW_5", 10.0e6)] == (7, 4)
+    assert built[("BW_8", 10.0e6)] == (35, 32)
+    assert built[("BW_8", 9.2e6)] is None
 
 
 RATE = devices.SAMPLE_RATE      # the exact elementary rate, 64e6 / 7
@@ -282,6 +389,33 @@ def test_stream_airspy_rate_every_frame_with_a_tail():
     np.testing.assert_array_equal(ts, flat[:len(ts)])
 
 
+def test_stream_airspy_rate_on_a_7mhz_channel():
+    """10 Msps on a 7 MHz channel (elementary rate 8 Msps, ratio 5/4: the
+    stencil spans more than two 5-sample rows) streams through the device
+    chain, with no host fallback, to a bit-exact TS of every whole frame.
+    The JAX receiver clamps the stencil there, so its TS at this ratio is
+    no reference for this one; the transmitted TS is."""
+    from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import Bandwidth
+    fs = Bandwidth.BW_7.sample_rate
+    n_play = 4
+    flat, samples = _waveform(n_play + 1)
+    fsamp = len(samples) // (n_play + 1)
+    dev_samples = hostfe.sinc_resample(samples[:n_play * fsamp + 2048],
+                                       fs / 10.0e6)
+    dev = devices.SimulatedDevice(dev_samples, snr_db=32, sample_rate=10.0e6)
+    sr = devices.StreamingReceiver(
+        dev, receiver=DeviceT2Receiver(device="cpu", stream_batch=3, fs=fs),
+        acq_seconds=0.025, block_seconds=0.007)
+    got = []
+    st = sr.run(ts_sink=got.append)
+    ts = np.concatenate(got) if got else np.zeros(0, np.uint8)
+    assert st.frontend == "DeviceFrontendChain"
+    assert sr.chain._rat == (5, 4)
+    assert st.frames_decoded == n_play
+    assert st.ts_errors == 0 and len(ts) > 0
+    np.testing.assert_array_equal(ts, flat[:len(ts)])
+
+
 def test_stream_unsupported_rate_keeps_host_chain(caplog):
     """A ratio the device chain refuses falls back to the documented host
     chain, as in the JAX package, and the fallback is logged."""
@@ -300,10 +434,10 @@ def test_stream_other_chain_errors_are_not_swallowed(monkeypatch):
     """Only the refused ratio moves the correction to the host: any other
     ValueError from the chain's constructor reaches the caller."""
     def broken(num, den, half=8):
-        raise ValueError("stencil does not fit")
+        raise ValueError("no polyphase bank")
     monkeypatch.setattr(tf, "make_rational_resampler", broken)
     _, samples = _waveform(2)
     dev = devices.SimulatedDevice(samples, snr_db=32, sample_rate=10.0e6)
-    with pytest.raises(ValueError, match="does not fit"):
+    with pytest.raises(ValueError, match="no polyphase bank"):
         devices.StreamingReceiver(
             dev, receiver=DeviceT2Receiver(device="cpu")).run()
