@@ -77,7 +77,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      each point's median of 3 chains with its spread, the peak device
      memory, the device's busy share over one clean step and the bench's
      record.
-  7. no jax module and no module of the JAX package is loaded.
+  7. the receiver CLI (`rx.cli`, as a user runs it): `tx.cli` writes a
+     4-frame capture at the bench's mode; `--flood-ldpc` one-shot on its
+     first frame (the host receiver and the f32 flooding decoder on the
+     card) and `--stream --device-path` on all of it (K2).  Gates: every
+     frame decoded, each TS bit-exact, K2 launched.
+  8. the entry hooks and the data-parallel step: `entry()` ((8, 64800)
+     bits, ms per call), `dryrun_multichip(1)` (a spawned NCCL rank: tiny
+     mode and flagship shape), and `sharded_fused_step` in a world-1 NCCL
+     group at the bench's mode with the front end on, 8 frames impaired by
+     SCO 2e-5.  Gates: every codeword equal to the transmitted one, the
+     stats all-reduce equal to the transmitted ones and codewords, the
+     bits equal to the same modules with no process group, the flooding
+     decoder's bits on the card equal to the CPU's (bf16 and f32).
+  9. the BER tool (`tools/ber_validation`) at NORMAL C2/3, B=128: K3, the
+     bf16 flooding decoder, K1 on the reversed layers.  Gate: each layered
+     column within 10% of flooding wherever that is at least 1e-3.
+  10. no jax module and no module of the JAX package is loaded.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -108,6 +124,10 @@ FFT_FRAMES = 32            # frames of the K6 check and the FFT microbench
 STREAM_FRAMES = 4          # frames of the vendor-rate streaming captures
 BENCH_FRAMES = 128         # frames per superstep of the bench phase
 STREAM_TAIL = 4096         # samples of the next frame played after the last
+CLI_FRAMES = 4             # frames of the capture the CLI phase writes
+SHARD_FRAMES = 8           # frames of the sharded step at the flagship shape
+SHARD_SCO = 2e-5           # the sharded step's fixed sample-clock offset
+SHARD_INV_NVAR = 1.0e3     # its LLR scale on the clean (int16) frames
 # the noise cases of the adaptive kernels: (label, sigma, traced floor)
 NOISE_CASES = (("clean", 0.0, 0), ("sigma 0.65", 0.65, 0),
                ("sigma 0.74", 0.74, 0), ("sigma 0.65 floor 8", 0.65, 8))
@@ -767,6 +787,220 @@ def phase_stream_frontend(p, plp, device, seed=21):
     return total
 
 
+def phase_cli(p, plp, seed=31):
+    """The receiver CLI as a user runs it: the port's `tx.cli` writes a
+    CLI_FRAMES-frame capture at the bench's mode, then `rx.cli` decodes it
+    one-shot with `--flood-ldpc` (the host receiver with the f32 flooding
+    decoder on the card; its first frame only, the host NumPy 256QAM
+    demapper taking tens of seconds per frame) and with `--stream
+    --device-path` (DeviceT2Receiver on the card: K2).  Gates: every frame
+    decoded, no TS errors, each TS a bit-exact prefix of the transmitted
+    one, K2 launched by the stream.  -> the stream's launch counts."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from sdr_receiver_dvb_t2_tpu_torch.rx import cli as rxcli
+    from sdr_receiver_dvb_t2_tpu_torch.tx import cli as txcli
+    from sdr_receiver_dvb_t2_tpu_torch.tx.modulator import T2Modulator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(seed)
+        ts = rng.integers(0, 256, (T2Modulator(p, [plp]).packets_needed(
+            CLI_FRAMES) + 4, 188)).astype(np.uint8)
+        ts[:, 0] = 0x47
+        ts[:, 1] &= 0x7F
+        ts = ts.reshape(-1)
+        ts_in, cap = os.path.join(tmp, "in.ts"), os.path.join(tmp, "c.cf32")
+        ts.tofile(ts_in)
+        t0 = time.time()
+        if txcli.main([ts_in, cap, "--blocks", str(NUM_BLOCKS),
+                       "--extended", "--frames", str(CLI_FRAMES)]) != 0:
+            raise RuntimeError("tx.cli failed")
+        first = os.path.join(tmp, "frame0.cf32")
+        np.fromfile(cap, np.complex64)[:p.frame_samples].tofile(first)
+        log(f"[cli] tx.cli wrote {CLI_FRAMES} frames at 32K PP7 extended, "
+            f"256QAM C2/3 NORMAL, {NUM_BLOCKS} blocks in "
+            f"{time.time() - t0:.1f} s")
+        launches = None
+        for label, src, flags, n in (
+                ("one-shot --flood-ldpc", first, ["--flood-ldpc"], 1),
+                ("--stream --device-path", cap,
+                 ["--stream", "--device-path"], CLI_FRAMES)):
+            out = os.path.join(tmp, "out.ts")
+            stdout = io.StringIO()
+            counts = _zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                rc = rxcli.main([src, "--out", out, *flags, "--stats-json"])
+            wall = time.perf_counter() - t0
+            run = _read_counts(counts)
+            if rc != 0:
+                raise RuntimeError(f"t2rx {label} exited {rc}")
+            st = json.loads(stdout.getvalue().strip().splitlines()[-1])
+            got = np.fromfile(out, np.uint8)
+            exact = len(got) > 0 and np.array_equal(got, ts[:len(got)])
+            log(f"[cli {label}] frames decoded {st['frames']}/{n}, TS "
+                f"errors {st['ts_errors']}, TS bit-exact={exact} "
+                f"({len(got)} bytes); host {1e3 * wall / n:.2f} ms per "
+                f"frame ({wall:.2f} s for the run); launches {run}")
+            if st["frames"] != n or st["ts_errors"] != 0 or not exact:
+                raise RuntimeError(f"cli gate failed ({label})")
+            launches = run
+        if launches["K2"] == 0:
+            raise RuntimeError("t2rx --stream --device-path never launched "
+                               "K2")
+    return launches
+
+
+def phase_sharded(p, plp, seed=41):
+    """The entry hooks and the data-parallel step: `entry()` on the card
+    ((8, 64800) bits, ms per call); `dryrun_multichip(1)` (one NCCL rank
+    in a spawned process: the tiny mode, then the flagship shape); then
+    `sharded_fused_step` in a world-1 NCCL group at the bench's mode with
+    the front end on, SHARD_FRAMES host-modulated frames impaired by SCO
+    2e-5 alone (the step's fixed front-end arguments), 4 f32 flooding
+    iterations.  Gates: every codeword equal to the transmitted one, stats
+    = (the transmitted ones, the codeword count), bits and local stats
+    equal to `local_fused_step` run with no process group, and the
+    flooding decoder's bits on the card equal to its bits on the CPU in
+    both dtypes.  (The decoder's own time and its split by operator:
+    `tools/ber_validation.py --profile`.)"""
+    import torch.distributed as dist
+    from sdr_receiver_dvb_t2_tpu_torch import entry
+    from sdr_receiver_dvb_t2_tpu_torch.dvbt2 import bbframe, bch, ldpc
+    from sdr_receiver_dvb_t2_tpu_torch.ops import frontend_device as fdev
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc as fldpc
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
+    from sdr_receiver_dvb_t2_tpu_torch.rx.p1_detect import P1_LEN
+    from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen as bg
+
+    fn, args = entry.entry()
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        bits = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if bits.shape != (8, 64800) or bits.dtype != torch.uint8:
+        raise RuntimeError(f"entry(): {tuple(bits.shape)} {bits.dtype}")
+    log(f"[sharded] entry(): bits {tuple(bits.shape)} uint8; "
+        f"{1e3 * np.median(times[1:]):.2f} ms per call (median of 3 after "
+        f"the first, {1e3 * times[0]:.2f} ms)")
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    entry.dryrun_multichip(1)
+    log(f"[sharded] dryrun_multichip(1): tiny mode and flagship shape on "
+        f"one NCCL rank, shapes and stats ok, {time.time() - t0:.1f} s "
+        f"with the process start")
+
+    t0 = time.time()
+    _, frames, rows = bg.modulate(p, plp, SHARD_FRAMES, seed=seed)
+    fec = plp.fec
+    bb = np.unpackbits(rows.reshape(-1, rows.shape[-1]), axis=1)
+    cw = ldpc.encode(ldpc.get_code(plp.fec_frame, plp.rate),
+                     bch.encode(plp.fec_frame,
+                                bbframe.scramble(bb[:, :fec.k_bch]),
+                                fec.t_bch))
+    blen = p.len_frame * p.symbol_size
+    body = torch.from_numpy(frames[:, P1_LEN:P1_LEN + blen]).cuda()
+    clean = torch.nn.functional.pad(
+        torch.stack([body.real, body.imag], -1).float(),
+        (0, 0, 2 * sharding.HALF, 0))
+    raw = fdev.make_impairer(fdev.frontend_raw_len(blen, SHARD_SCO), bg.FS,
+                             half=sharding.HALF)(
+        clean, 0.0, 1.0 + SHARD_SCO, 0.0, torch.zeros(2, device="cuda"),
+        torch.tensor([1.0, 0.0], device="cuda"), None, 0.0)
+    del body, clean
+    log(f"[sharded] {SHARD_FRAMES} frames modulated, encoded and impaired "
+        f"(SCO {SHARD_SCO:g}) in {time.time() - t0:.1f} s")
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        step = sharding.sharded_fused_step(
+            p, plp, NUM_BLOCKS, SHARD_FRAMES, sharding.make_mesh(1),
+            ldpc_iters=4, with_frontend=True, sco=SHARD_SCO)
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            bits, stats = step(raw, SHARD_INV_NVAR)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    local = sharding.local_fused_step(p, plp, NUM_BLOCKS, SHARD_FRAMES,
+                                      ldpc_iters=4, with_frontend=True,
+                                      sco=SHARD_SCO)
+    rbits, rstats = local(raw, SHARD_INV_NVAR)
+    # the decoder on the card against the same on the CPU, in both dtypes,
+    # on noisy words (equal bf16 magnitudes, where the first minimum
+    # decides, are common): bits equal
+    cw16 = bg.codewords(plp.fec_frame, plp.rate, 16, seed)
+    noise = np.random.default_rng(seed).normal(0, 1.0, cw16.shape)
+    x16 = torch.from_numpy(((2.0 / 0.8 ** 2) * (1.0 - 2.0 * cw16 + 0.8 * noise)
+                            ).astype(np.float32))
+    same_cpu = {str(dt).split(".")[1]: torch.equal(
+        fldpc.make_decoder(plp.fec_frame, plp.rate, iters=4, dtype=dt)(
+            x16.cuda()).cpu(),
+        fldpc.make_decoder(plp.fec_frame, plp.rate, iters=4, dtype=dt)(x16))
+        for dt in (torch.bfloat16, torch.float32)}
+    got = bits.cpu().numpy().reshape(-1, fec.n_ldpc)
+    ok_cw = int((got == cw).all(axis=1).sum())
+    st = stats.cpu().numpy()
+    want = np.array([cw.sum(), len(cw)], np.float32)
+    same = torch.equal(bits, rbits) and torch.equal(stats, rstats)
+    log(f"[sharded] sharded_fused_step F={SHARD_FRAMES} x {NUM_BLOCKS} "
+        f"codewords, front end on, 4 f32 flooding iterations: "
+        f"{ok_cw}/{len(cw)} codewords equal to the transmitted ones; stats "
+        f"{st.tolist()} (transmitted {want.tolist()}); equal to the modules "
+        f"with no process group: {same}; "
+        f"{1e3 * np.median(times[1:]):.2f} ms per step (median of 3 after "
+        f"the first, {1e3 * times[0]:.2f} ms), "
+        f"{1e3 * np.median(times[1:]) / SHARD_FRAMES:.2f} ms per frame")
+    log(f"[sharded] the flooding decoder on the card equals it on the CPU "
+        f"(16 NORMAL C2/3 words at sigma 0.8, 4 iterations): {same_cpu}")
+    if ok_cw != len(cw) or not np.array_equal(st, want) or not same \
+            or not all(same_cpu.values()):
+        raise RuntimeError("sharded step gate failed")
+
+
+def phase_ber():
+    """The BER tool (`tools/ber_validation.ber_table`) at NORMAL C2/3,
+    B=128, on the card: K3 (layered10_f32 and layered10_bf16), the bf16
+    flooding decoder and K1 (layered10_bf16_rev).  Gate: wherever the
+    flooding BER is at least 1e-3, each layered column is within 10%
+    (relative) of it.  -> launch counts."""
+    from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import (CodeRate,
+                                                            FECFrame)
+    from sdr_receiver_dvb_t2_tpu_torch.tools import ber_validation as bv
+    counts = _zero_counts()
+    t0 = time.time()
+    rows = bv.ber_table(FECFrame.NORMAL, CodeRate.C2_3, bv.BATCH,
+                        bv.SIGMAS, "cuda")
+    torch.cuda.synchronize()
+    launches = _read_counts(counts)
+    bad = []
+    for row in rows:
+        log(f"[ber] sigma={row['sigma']}: " + "  ".join(
+            f"{k}={v:.3e}" for k, v in row.items() if k != "sigma"))
+        ref = row["flood25_bf16"]
+        if ref >= 1e-3:
+            bad += [(row["sigma"], k) for k in row
+                    if k.startswith("layered")
+                    and abs(row[k] - ref) > 0.1 * ref]
+    log(f"[ber] NORMAL C2/3, B={bv.BATCH}, {time.time() - t0:.1f} s; the "
+        f"JAX tool (TPU, commit 7da07ec) at sigma 0.74: layered10_bf16_rev "
+        f"4.98e-2, layered10_f32 4.97e-2, flood25 4.93e-2; launches "
+        f"{launches}")
+    if bad:
+        raise RuntimeError(f"BER gate failed (sigma, decoder): {bad}")
+    if launches["K1"] == 0 or launches["K3"] + launches["K4"] == 0:
+        raise RuntimeError("the BER tool did not launch K1 and K3/K4")
+    return launches
+
+
 def gate_no_foreign_modules():
     """Neither jax nor the JAX package (`sdr_receiver_dvb_t2_tpu`, not the
     port, whose name it prefixes) may be loaded."""
@@ -812,6 +1046,9 @@ def main():
         args.rx_frames, "cuda")
     fe_launches = phase_stream_frontend(p, plp, "cuda")
     bench_launches, _ = phase_bench(BENCH_FRAMES)
+    cli_launches = phase_cli(p, plp)
+    phase_sharded(p, plp)
+    ber_launches = phase_ber()
     gate_no_foreign_modules()
     names = {"K1": "ldpc_layered_vmem_adaptive_io",
              "K2": "ldpc_layered_vmem_adaptive",
@@ -824,7 +1061,7 @@ def main():
     for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
         rec = dict(checks[k])
         n = (launches[k] + rx_launches[k] + fe_launches[k]
-             + bench_launches[k])
+             + bench_launches[k] + cli_launches[k] + ber_launches[k])
         if n == 0:
             raise RuntimeError(f"{k} was never launched on a main path")
         if k in ("K1", "K5"):

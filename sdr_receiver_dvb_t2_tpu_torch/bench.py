@@ -49,6 +49,7 @@ import warnings
 import numpy as np
 import torch
 
+from ._device import resolve
 from .dvbt2 import bbframe
 from .dvbt2 import l1 as l1mod
 from .rx import superstep as ssmod
@@ -105,14 +106,6 @@ def _inv_nvar(snr_db: float) -> float:
     return 10.0 ** ((snr_db if snr_db > 0 else 33.0) / 10.0)
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the bench runs on the card "
-                           "(device='cpu' checks its gates only)")
-    return dev
-
-
 class Bench:
     """The bench's state: the base payload and its frame ingredients, the
     superstep, the expected hashes and the tracking state.
@@ -123,7 +116,7 @@ class Bench:
     def __init__(self, p, plp, n_frames: int, device, noise, acq,
                  multipath=(0.15, 32), fixed_iters: int = 0,
                  no_impairments: bool = False, gate_frame=None, log=_log):
-        self.dev = _device(device)
+        self.dev = resolve(device, "the bench")
         self.p, self.plp, self.n_frames = p, plp, n_frames
         self.noise, self.acq, self.log = noise, acq, log
         self.no_impairments = no_impairments
@@ -415,7 +408,7 @@ def run(p=None, plp=None, *, frames: int = 128, snr: float = 19.0,
     echo."""
     if p is None:
         p, plp = bg.headline_mode()
-    dev = _device(device)
+    dev = resolve(device, "the bench")
     if noise is None:
         noise = torch.Generator(device=dev).manual_seed(7)
     if acq is None:

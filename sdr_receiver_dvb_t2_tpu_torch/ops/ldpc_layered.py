@@ -7,6 +7,7 @@ K1-K5 of `sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py` and their front doors.
 | K2     | `make_pallas_layered_vmem_adaptive`    | `make_adaptive_decoder_nb_fused`     |
 | K3     | `make_pallas_layered_vmem`             | `make_decoder_nb` (variant "vmem")   |
 | K4     | `make_pallas_layered`                  | `make_decoder_nb` (variant "hbm")    |
+| K3/K4  | the same, (B, N) in and out            | `make_decoder_natural`               |
 | K5     | `make_decoder_nb_fused_io`'s own call  | `make_decoder_nb_fused_io`           |
 
 Two implementations of each:
@@ -722,6 +723,19 @@ def make_decoder_nb(frame: FECFrame, rate: CodeRate, iters: int, batch: int,
     K4 behind the (N, B) layout."""
     return FixedDecoderNB(frame, rate, make_core(frame, rate, iters, batch,
                                                  variant=variant), batch)
+
+
+def make_decoder_natural(frame: FECFrame, rate: CodeRate, iters: int,
+                         batch: int):
+    """The layered decoder with the natural (B, N) layout in and out
+    (`make_decoder_nb` behind a transpose: K3 or K4 by `make_core`'s
+    choice).  fn(llrs (B, N)) -> bits (B, N) uint8."""
+    dec = make_decoder_nb(frame, rate, iters, batch)
+
+    def decode(llrs: torch.Tensor) -> torch.Tensor:
+        return dec(llrs.T).T
+
+    return decode
 
 
 class FusedIODecoderNB:

@@ -2,8 +2,9 @@
 against the JAX package's `ops/ldpc.make_decoder` on SHORT codes.
 
 The receivers run it (in bf16, as the JAX receivers ask of the JAX
-decoder) for every batch that is not a multiple of 128 codewords; the hard
-bits must be equal (tolerance 0).  Inputs sit at a
+decoder) for every batch that is not a multiple of 128 codewords; `t2rx
+--flood-ldpc`, the sharded step and `entry()` run it in f32 (the JAX
+default).  In both dtypes the hard bits must be equal (tolerance 0).  Inputs sit at a
 noise level where some codewords are still wrong after the last
 iteration, so the comparison covers undecoded words too."""
 import jax.numpy as jnp
@@ -39,16 +40,18 @@ def _noisy(rate, amp, seed):
     return code, cw, llr
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("rate,amp,iters", [
     (CodeRate.C1_2, 1.3, 24),
     (CodeRate.C3_4, 1.8, 24),
     (CodeRate.C1_2, 1.6, 8),
 ], ids=str)
-def test_flood_bits_equal_jax(rate, amp, iters):
+def test_flood_bits_equal_jax(rate, amp, iters, dtype):
     code, cw, llr = _noisy(rate, amp, seed=iters)
-    ref = np.asarray(jldpc.make_decoder(code, iters=iters, dtype="bfloat16")(
+    ref = np.asarray(jldpc.make_decoder(code, iters=iters, dtype=dtype)(
         jnp.asarray(llr)))
-    dec = tldpc.make_decoder(*P(S, rate), iters=iters)
+    dec = tldpc.make_decoder(*P(S, rate), iters=iters,
+                             dtype=getattr(torch, dtype))
     bits = dec(torch.from_numpy(llr))
     assert bits.dtype == torch.uint8 and bits.shape == (B, code.n)
     np.testing.assert_array_equal(bits.numpy(), ref)
@@ -76,3 +79,10 @@ def test_vn_adjacency_equals_jax():
 def test_make_decoder_is_cached_per_code():
     assert tldpc.make_decoder(*P(S, CodeRate.C1_2), iters=4) is \
         tldpc.make_decoder(*P(S, CodeRate.C1_2), iters=4)
+    f32 = tldpc.make_decoder(*P(S, CodeRate.C1_2), iters=4,
+                             dtype=torch.float32)
+    assert f32 is not tldpc.make_decoder(*P(S, CodeRate.C1_2), iters=4)
+    assert f32.dtype == torch.float32
+    with pytest.raises(ValueError):
+        tldpc.make_decoder(*P(S, CodeRate.C1_2), iters=4,
+                           dtype=torch.float16)
