@@ -90,10 +90,30 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      stats all-reduce equal to the transmitted ones and codewords, the
      bits equal to the same modules with no process group, the flooding
      decoder's bits on the card equal to the CPU's (bf16 and f32).
+     Then the v1 step (`sharded_receive_step`, the dryrun's part 2) in a
+     world-1 NCCL group on 2 of those frames, un-impaired, 2 f32 flooding
+     iterations: its bits equal to the same step on the CPU and to the
+     transmitted codewords.
   9. the BER tool (`tools/ber_validation`) at NORMAL C2/3, B=128: K3, the
      bf16 flooding decoder, K1 on the reversed layers.  Gate: each layered
      column within 10% of flooding wherever that is at least 1e-3.
-  10. no jax module and no module of the JAX package is loaded.
+  10. two-process streaming (`tools/concurrent_stream_bench`, ranks of a
+     gloo group sharing cuda:0, each with DeviceT2Receiver: K2) at the
+     headline mode: the handoff (8 frames, rank 0 streams 4 blocks and
+     broadcasts its checkpoint, rank 1 resumes) and the concurrent slices
+     (8 frames, 2 per slice, 2 rounds, CFO 600 Hz, SCO 20 ppm, 30 dB).
+     Gates: the TS bit-exact against one process on the same capture, no
+     TS errors, K2 launched in each rank; concurrent: both ranks' CFO
+     history equal, and moving.  Prints the per-round walltimes.
+  11. the microbenches at the headline mode: `demod_split_microbench` at
+     F=128 with the cuFFT and the K6 head (gate: the llr prefix equals
+     `MultiFramePath.syms`), `path_microbench` (F=8) and
+     `demod_microbench` (F=32), `fec_tail_microbench` (gates: every
+     codeword BCH-clean, per-frame and grouped hashes equal),
+     `ldpc_microbench` (K3 against K4; gate: both decode exactly),
+     `hbm_vmem_equivalence` (gate: K4 equal to the f32 layered reference,
+     errors corrected) and one row (19 dB) of `ldpc_iters_sweep`.
+  12. no jax module and no module of the JAX package is loaded.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -128,6 +148,10 @@ CLI_FRAMES = 4             # frames of the capture the CLI phase writes
 SHARD_FRAMES = 8           # frames of the sharded step at the flagship shape
 SHARD_SCO = 2e-5           # the sharded step's fixed sample-clock offset
 SHARD_INV_NVAR = 1.0e3     # its LLR scale on the clean (int16) frames
+V1_FRAMES = 2              # frames of the v1 step (the dryrun's part 2)
+STREAM_DIST_FRAMES = 8     # frames of each two-process streaming capture
+SPLIT_FRAMES = 128         # frames of the demod + LLR stage split
+TOOL_REPS = 2              # timed steps per microbench prefix
 # the noise cases of the adaptive kernels: (label, sigma, traced floor)
 NOISE_CASES = (("clean", 0.0, 0), ("sigma 0.65", 0.65, 0),
                ("sigma 0.74", 0.74, 0), ("sigma 0.65 floor 8", 0.65, 8))
@@ -138,13 +162,9 @@ def log(msg):
 
 
 def kernel_wrappers():
-    """{name: the launch-counting wrapper} of K1-K6."""
-    from sdr_receiver_dvb_t2_tpu_torch.ops import fft_stage1
-    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as ll
-    return {"K1": ll.ldpc_layered_cuda, "K2": ll.ldpc_layered_adaptive_cuda,
-            "K3": ll.ldpc_layered_vmem_cuda, "K4": ll.ldpc_layered_hbm_cuda,
-            "K5": ll.ldpc_layered_fused_io_cuda,
-            "K6": fft_stage1.fft_stage1_cuda}
+    """{name: the launch-counting wrapper} of K1-K6 (the package's table)."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import kernel_wrappers as table
+    return table()
 
 
 def ldpc_bound(code, batch, in_bytes, sweeps, checks=0):
@@ -965,6 +985,42 @@ def phase_sharded(p, plp, seed=41):
             or not all(same_cpu.values()):
         raise RuntimeError("sharded step gate failed")
 
+    # the v1 step, the dryrun's part 2: the per-frame v1 demod, then the
+    # rank's block of the flattened codeword batch, 2 f32 flooding
+    # iterations; on un-impaired frames (no front end in this step)
+    body = frames[:V1_FRAMES, P1_LEN:P1_LEN + blen]
+    bodies = torch.from_numpy(np.stack([body.real, body.imag], -1).astype(
+        np.float32))
+    del body
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        step = sharding.sharded_receive_step(p, plp, NUM_BLOCKS,
+                                             sharding.make_mesh(1),
+                                             ldpc_iters=2)
+        t0 = time.perf_counter()
+        vbits, vstats = step(bodies.cuda(), SHARD_INV_NVAR)
+        torch.cuda.synchronize()
+        v_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    cbits, cstats = sharding.local_receive_step(p, plp, NUM_BLOCKS, 2)(
+        bodies, SHARD_INV_NVAR)
+    c_s = time.perf_counter() - t0
+    v_same = torch.equal(vbits.cpu(), cbits) and torch.equal(
+        vstats.cpu(), cstats)
+    v_cw = cw[:V1_FRAMES * NUM_BLOCKS]
+    v_ok = int((vbits.cpu().numpy() == v_cw).all(axis=1).sum())
+    log(f"[sharded] v1 step (dryrun part 2) F={V1_FRAMES} x {NUM_BLOCKS} "
+        f"codewords, 2 f32 flooding iterations: bits equal to the same "
+        f"step on the CPU: {v_same}; {v_ok}/{len(v_cw)} codewords equal to "
+        f"the transmitted ones; stats {vstats.cpu().tolist()}; "
+        f"{v_ms:.2f} ms on the card (first call), {c_s:.2f} s on the CPU")
+    if not v_same or v_ok != len(v_cw) \
+            or int(vstats[1]) != V1_FRAMES * NUM_BLOCKS:
+        raise RuntimeError("v1 step gate failed")
+
 
 def phase_ber():
     """The BER tool (`tools/ber_validation.ber_table`) at NORMAL C2/3,
@@ -998,6 +1054,122 @@ def phase_ber():
         raise RuntimeError(f"BER gate failed (sigma, decoder): {bad}")
     if launches["K1"] == 0 or launches["K3"] + launches["K4"] == 0:
         raise RuntimeError("the BER tool did not launch K1 and K3/K4")
+    return launches
+
+
+def phase_stream_dist():
+    """Both two-process streaming mechanisms at the headline mode, two
+    gloo ranks sharing cuda:0, each decoding with DeviceT2Receiver (K2);
+    the single-process reference runs here once they have ended.  -> the
+    ranks' launch counts, summed (each rank is a fresh process whose
+    counts start at 0 and are read at its end)."""
+    from sdr_receiver_dvb_t2_tpu_torch.tools import \
+        concurrent_stream_bench as csb
+    total = {k: 0 for k in kernel_wrappers()}
+    for label, run in (("handoff", csb.run_handoff),
+                       ("concurrent", csb.run_concurrent)):
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        sec = run("headline", "device", "cuda", STREAM_DIST_FRAMES)
+        wall = time.time() - t0
+        for r in sec["launches"].values():
+            for k, v in r.items():
+                total[k] += v
+        pub = csb.public(sec)
+        if label == "handoff":
+            log(f"[stream {label}] {STREAM_DIST_FRAMES} frames: frames "
+                f"decoded by rank {pub['frames_by_rank']}, TS packets "
+                f"{pub['ts_packets_by_rank']}, front end "
+                f"{pub['frontend']}; rank walls (s) "
+                f"{ {r: round(v, 3) for r, v in pub['wall_s'].items()} }; "
+                f"one process {pub['single_wall_s']:.3f} s for "
+                f"{pub['single_frames']} frames; TS bit-exact="
+                f"{pub['ts_bit_exact_vs_single_process']} ({len(sec['ts'])} "
+                f"bytes), TS errors {pub['ts_errors']}; launches by rank "
+                f"{pub['launches']}; capture {pub['capture_s']:.1f} s; "
+                f"{wall:.1f} s in all")
+        else:
+            h = pub["cfo_history_hz"]
+            log(f"[stream {label}] {STREAM_DIST_FRAMES} frames, "
+                f"{pub['rounds']} rounds of 2 x {2} frames: per-round "
+                f"decode walltimes (s) {pub['round_walltimes_s']}; rank "
+                f"walls (s) {pub['wall_s']}; one process "
+                f"{pub['single_wall_s']:.3f} s for {pub['single_frames']} "
+                f"frames; CFO history {[round(c, 3) for c in h]} Hz, equal "
+                f"in both ranks: {pub['cfo_history_equal']}; TS bit-exact="
+                f"{pub['ts_bit_exact_vs_single_process']} ({len(sec['ts'])} "
+                f"bytes), TS errors {pub['ts_errors']}; launches by rank "
+                f"{pub['launches']}; capture {pub['capture_s']:.1f} s; "
+                f"{wall:.1f} s in all")
+            if not pub["cfo_history_equal"] or not any(
+                    abs(h[i + 1] - h[i]) > 1e-3 for i in range(len(h) - 1)):
+                raise RuntimeError("concurrent streaming: the shared CFO "
+                                   "state did not cross or did not move")
+        if not pub["ts_bit_exact_vs_single_process"] or pub["ts_errors"]:
+            raise RuntimeError(f"{label} streaming: TS not bit-exact")
+        if any(v["K2"] == 0 for v in pub["launches"].values()):
+            raise RuntimeError(f"{label} streaming: a rank never launched "
+                               "K2")
+    return total
+
+
+def phase_tools(p, plp):
+    """The microbenches and the LDPC gate at the headline mode, each
+    printing its numbers; any gate that fails raises.  -> launch counts."""
+    from sdr_receiver_dvb_t2_tpu_torch.tools import (
+        demod_microbench, demod_split_microbench as dsm, fec_tail_microbench,
+        hbm_vmem_equivalence, ldpc_iters_sweep, ldpc_microbench,
+        path_microbench)
+    torch.cuda.empty_cache()
+    counts = _zero_counts()
+    t0 = time.time()
+    split = dsm.run(p, plp, NUM_BLOCKS, SPLIT_FRAMES, reps=TOOL_REPS,
+                    log=lambda m: log(m))
+    for h in dsm.HEADS:
+        log(f"[demod split {h}] F={SPLIT_FRAMES}, ms/frame by stage: "
+            + "  ".join(f"{s} {v / SPLIT_FRAMES:.4f}"
+                        for s, v in dsm.deltas(split[h]).items())
+            + f"; all {split[h]['llr'] / SPLIT_FRAMES:.4f}")
+    log(f"[demod split] the llr prefix equals MultiFramePath.syms: "
+        f"{split['llr_equals_path']} ({split['llr_differing']} LLRs differ; "
+        f"{split['llr_nan']} NaN in both, where the random symbols make a "
+        f"channel estimate of 0); {time.time() - t0:.1f} s")
+    if not split["llr_equals_path"]:
+        raise RuntimeError("demod split: the llr prefix is not the path")
+    torch.cuda.empty_cache()
+    path = path_microbench.run(p, plp, NUM_BLOCKS, 8, reps=TOOL_REPS,
+                               log=lambda m: log(m))
+    log(f"[path] the llrs prefix equals MultiFramePath: "
+        f"{path['llrs_equal_path']} ({path['llrs_differing']} LLRs differ)")
+    if not path["llrs_equal_path"]:
+        raise RuntimeError("path microbench: llrs prefix is not the path")
+    torch.cuda.empty_cache()
+    dm = demod_microbench.run(p, 32, reps=TOOL_REPS, log=lambda m: log(m))
+    if not dm["div_rdiv_max_rel"] < 1e-5:
+        raise RuntimeError("demod microbench: the equalizer forms differ")
+    torch.cuda.empty_cache()
+    fec = fec_tail_microbench.run(reps=TOOL_REPS, log=lambda m: log(m))
+    log(f"[fec tail] BCH-clean codewords {fec['bch_clean']} of "
+        f"{fec['codewords']}; per-frame and grouped hashes equal: "
+        f"{fec['hash_equal']}")
+    if not fec["hash_equal"] or any(v != fec["codewords"]
+                                    for v in fec["bch_clean"].values()):
+        raise RuntimeError("fec tail microbench gate failed")
+    torch.cuda.empty_cache()
+    lm = ldpc_microbench.run(reps=4, log=lambda m: log(m))
+    if not all(v["decode_exact"] for v in lm.values()):
+        raise RuntimeError("ldpc microbench: a decode was not exact")
+    recs = hbm_vmem_equivalence.run(log=lambda m: log(f"[hbm/vmem] {m}"))
+    if not all(r["ok"] for r in recs):
+        raise RuntimeError("hbm_vmem_equivalence failed")
+    ldpc_iters_sweep.run(snrs=(19.0,), log=lambda m: log(f"[iters sweep] "
+                                                          f"{m}"))
+    torch.cuda.synchronize()
+    launches = _read_counts(counts)
+    log(f"[tools] {time.time() - t0:.1f} s; launches {launches}")
+    for k in ("K2", "K3", "K4", "K6"):
+        if launches[k] == 0:
+            raise RuntimeError(f"the tools never launched {k}")
     return launches
 
 
@@ -1049,6 +1221,8 @@ def main():
     cli_launches = phase_cli(p, plp)
     phase_sharded(p, plp)
     ber_launches = phase_ber()
+    dist_launches = phase_stream_dist()
+    tool_launches = phase_tools(p, plp)
     gate_no_foreign_modules()
     names = {"K1": "ldpc_layered_vmem_adaptive_io",
              "K2": "ldpc_layered_vmem_adaptive",
@@ -1061,7 +1235,8 @@ def main():
     for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
         rec = dict(checks[k])
         n = (launches[k] + rx_launches[k] + fe_launches[k]
-             + bench_launches[k] + cli_launches[k] + ber_launches[k])
+             + bench_launches[k] + cli_launches[k] + ber_launches[k]
+             + dist_launches[k] + tool_launches[k])
         if n == 0:
             raise RuntimeError(f"{k} was never launched on a main path")
         if k in ("K1", "K5"):

@@ -104,3 +104,13 @@ def make_decoder(frame: FECFrame, rate: CodeRate, iters: int = 25,
     """Batched decoder for the (frame, rate) code: (B, N) llrs -> (B, N)
     hard bits; one per code, iteration count and dtype (bf16 or f32)."""
     return FloodDecoder(frame, rate, iters, dtype)
+
+
+def syndrome_ok(code, bits: np.ndarray) -> np.ndarray:
+    """Batched syndrome check on host: (B, N) -> (B,) bool (the JAX
+    module's NumPy `syndrome_ok`; `code` is a `dvbt2.ldpc.LDPCCode`)."""
+    bits = np.asarray(bits, dtype=np.uint8)
+    padded = np.concatenate(
+        [bits, np.zeros((bits.shape[0], 1), np.uint8)], axis=1)
+    return ~np.any(
+        np.bitwise_xor.reduce(padded[:, code.cn_idx], axis=2) & 1, axis=1)

@@ -18,6 +18,11 @@ Two implementations of each:
   and of the exit loops), which is the kernel's reference and the path CPU
   tensors take.
 
+The study helpers `build_layered_stepper` and `build_layered_decoder` (the
+JAX XLA mirrors of the kernels' schedule, with `offset`, `scale`,
+`c2v_dtype` and `layer_order` exposed) and `qc_syndrome_ok` serve the
+LDPC tools; no kernel reaches them.
+
 Both compute exactly the same bits and sweep count: every float operation
 is the same IEEE f32 operation in the same order.
 """
@@ -61,6 +66,13 @@ def qc_syndrome_weight(frame: FECFrame, rate: CodeRate, total_info,
     return _syndrome_weight(qc_tables(frame, rate), total_info, total_par)
 
 
+def qc_syndrome_ok(frame: FECFrame, rate: CodeRate, total_info,
+                   total_par) -> torch.Tensor:
+    """Per-codeword parity check from QC-layout totals: (B,) bool, True
+    where no check fails (`qc_syndrome_weight` == 0)."""
+    return qc_syndrome_weight(frame, rate, total_info, total_par) == 0
+
+
 def _syndrome_weight(tab: QCTables, total_info, total_par) -> torch.Tensor:
     hard_i = (total_info < 0).int()
     hard_p = (total_par < 0).int()
@@ -82,8 +94,11 @@ def _syndrome_weight(tab: QCTables, total_info, total_par) -> torch.Tensor:
 
 
 def _stored(x: torch.Tensor, c2v_dtype) -> torch.Tensor:
-    """A new message as the kernel stores it (bf16 rounding or f32)."""
-    return x.to(torch.bfloat16).float() if c2v_dtype == torch.bfloat16 else x
+    """A new message as the kernel stores it: rounded to `c2v_dtype` (bf16)
+    and widened back, or as it is (f32, or None)."""
+    if c2v_dtype is None or c2v_dtype == x.dtype:
+        return x
+    return x.to(c2v_dtype).to(x.dtype)
 
 
 def layered_sweep(tab: QCTables, order: list, ti, tp, c2v,
@@ -141,67 +156,119 @@ def layered_sweep(tab: QCTables, order: list, ti, tp, c2v,
 
 def layered_sweep_hbm(tab: QCTables, ti, tp, c2v) -> None:
     """One sweep of K4's layer body (`make_pallas_layered`), in place, in
-    natural layer order, with f32 messages (nothing rounds to bf16).
-    Unlike `layered_sweep` its c2v slots are
-    (q, degmax+2, 360, B) with info edge j at slot j, parity self at degmax
-    and parity prev at degmax+1; the unused info slots j >= deg enter the
-    two-minimum scan as +BIG messages (and store 0); the leave-one-out
-    minimum goes to the argmin of the strict-< scan."""
+    natural layer order, with f32 messages (nothing rounds to bf16):
+    `stepper_sweep` at the kernels' offset.  Unlike `layered_sweep` its c2v
+    slots are (q, degmax+2, 360, B) with info edge j at slot j, parity self
+    at degmax and parity prev at degmax+1 (the unused info slots keep 0);
+    the leave-one-out minimum goes to the argmin of the strict-< scan."""
+    stepper_sweep(tab, range(tab.q), ti, tp, c2v)
+
+
+def stepper_sweep(tab: QCTables, order: list, ti, tp, c2v,
+                  offset: float = OFFSET, scale: float = 1.0,
+                  c2v_dtype=None) -> None:
+    """One sweep of JAX `_build_one_iteration`, in place, in `order`: the
+    study schedule of `build_layered_stepper`.  Messages c2v
+    (q, degmax+2, 360, B): info edge j at slot j, parity self at degmax,
+    parity prev at degmax+1; the leave-one-out minimum goes to the argmin
+    of the strict-< scan; a new message is sign * max(loo - offset, 0) *
+    scale, rounded to `c2v_dtype` (when given) before it feeds the totals.
+    The float operations are JAX's, in JAX's order, but for the last
+    parity row at layer 0: JAX blends its kept slot 359 back in
+    (rolled * (1 - keep) + old * keep), this selects it, which gives the
+    same values up to the sign of a zero.  At offset 0.5, scale 1 and f32
+    messages in natural order it is K4's layer body (`layered_sweep_hbm`)."""
     q, dm = tab.q, tab.degmax
-    e = dm + 2
-    u_last = torch.zeros((NU, 1), dtype=torch.bool, device=ti.device)
+    dev = ti.device
+    u0 = torch.zeros((NU, 1), device=dev)
+    u0[0] = BIG
+    u_last = torch.zeros((NU, 1), dtype=torch.bool, device=dev)
     u_last[NU - 1] = True
-    zeros = torch.zeros((NU, 1), device=ti.device)
-    for t in range(q):
+    off, sc = float(np.float32(offset)), float(np.float32(scale))
+    for t in order:
         deg = int(tab.layer_deg[t])
         edges = [(int(tab.entry_g[t, j]), int(tab.entry_s[t, j]))
                  for j in range(deg)]
         msgs = [torch.roll(ti[g], s, 0) - c2v[t, j]
                 for j, (g, s) in enumerate(edges)]
-        msgs += [torch.full_like(tp[t], BIG) for _ in range(deg, dm)]
         msgs.append(tp[t] - c2v[t, dm])
-        mask0 = zeros.clone()
-        if t == 0:
-            mask0[0] = BIG
-            prev_al = torch.roll(tp[q - 1], 1, 0)
+        if t > 0:
+            msgs.append(tp[t - 1] - c2v[t, dm + 1])
         else:
-            prev_al = tp[t - 1]
-        msgs.append(prev_al - c2v[t, e - 1] + mask0)
-        min1 = msgs[0].abs()
+            msgs.append(torch.roll(tp[q - 1], 1, 0) - c2v[t, dm + 1] + u0)
+        mags = [m.abs() for m in msgs]
+        negs = [m < 0 for m in msgs]
+        min1 = mags[0]
         min2 = torch.full_like(min1, BIG)
-        amin = torch.zeros(min1.shape, dtype=torch.int64, device=ti.device)
-        nneg = (msgs[0] < 0).int()
-        for j in range(1, e):
-            aj = msgs[j].abs()
-            is_new = aj < min1
-            min2 = torch.where(is_new, min1, torch.minimum(min2, aj))
-            min1 = torch.where(is_new, aj, min1)
+        amin = torch.zeros(min1.shape, dtype=torch.int64, device=dev)
+        nneg = negs[0].int()
+        for j in range(1, len(msgs)):
+            is_new = mags[j] < min1
+            min2 = torch.where(is_new, min1, torch.minimum(min2, mags[j]))
+            min1 = torch.where(is_new, mags[j], min1)
             amin = torch.where(is_new, j, amin)
-            nneg = nneg + (msgs[j] < 0).int()
+            nneg = nneg + negs[j].int()
         sign_all = 1.0 - 2.0 * (nneg % 2).float()
-        newc = []
-        for j in range(e):
+        new = []
+        for j in range(len(msgs)):
             loo = torch.where(amin == j, min2, min1)
-            sgn = sign_all * torch.where(msgs[j] < 0, -1.0, 1.0)
-            newc.append(sgn * torch.clamp(loo - OFFSET, min=0.0))
-        for j in range(dm):
-            if j < deg:
-                g, s = edges[j]
-                ti[g] = ti[g] + torch.roll(newc[j] - c2v[t, j], -s, 0)
-                c2v[t, j] = newc[j]
-            else:
-                c2v[t, j] = 0.0
-        tp[t] = msgs[dm] + newc[dm]
-        c2v[t, dm] = newc[dm]
-        prev_new = msgs[e - 1] + newc[e - 1] - mask0
+            sgn = sign_all * torch.where(negs[j], -1.0, 1.0)
+            new.append(_stored(sgn * (torch.clamp(loo - off, min=0.0) * sc),
+                               c2v_dtype))
+        for j, (g, s) in enumerate(edges):
+            ti[g] = ti[g] + torch.roll(new[j] - c2v[t, j], NU - s, 0)
+            c2v[t, j] = new[j]
+        tp[t] = msgs[deg] + new[deg]
+        prev_new = msgs[deg + 1] + new[deg + 1]
         if t == 0:
-            # aligned slot u maps to par[q-1][u-1]; par[q-1][359] keeps
-            # its value
+            # aligned slot u is parity (q-1, u-1); u=0 is the masked
+            # non-edge and par[q-1][359] keeps its value
             tp[q - 1] = torch.where(u_last, tp[q - 1],
-                                    torch.roll(prev_new, -1, 0))
+                                    torch.roll(prev_new, NU - 1, 0))
         else:
             tp[t - 1] = prev_new
-        c2v[t, e - 1] = newc[e - 1]
+        c2v[t, dm] = new[deg]
+        c2v[t, dm + 1] = new[deg + 1]
+
+
+def build_layered_stepper(frame: FECFrame, rate: CodeRate,
+                          offset: float = OFFSET, scale: float = 1.0,
+                          c2v_dtype=None, layer_order=None):
+    """One layered sweep over explicit state:
+    fn(total_info, total_par, c2v) -> (total_info', total_par', c2v'),
+    its inputs left as they were (JAX `build_layered_stepper`).  `scale`
+    multiplies the corrected magnitude (normalized min-sum; scale=1 with
+    offset 0.5 is the kernels' rule); `c2v_dtype` (e.g. bf16) rounds each
+    new message to that precision before it feeds the totals, as the
+    kernels store it; `layer_order`: None, "reversed" or a permutation."""
+    tab = qc_tables(frame, rate)
+    order = _layer_order(tab.q, layer_order)
+
+    def step(ti, tp, c2v):
+        ti, tp, c2v = ti.clone(), tp.clone(), c2v.clone()
+        stepper_sweep(tab, order, ti, tp, c2v, offset, scale, c2v_dtype)
+        return ti, tp, c2v
+
+    return step
+
+
+def build_layered_decoder(frame: FECFrame, rate: CodeRate, iters: int,
+                          offset: float = OFFSET):
+    """fn(total_info, total_par) -> (total_info', total_par'): `iters`
+    sweeps of `build_layered_stepper`'s schedule in natural order with f32
+    messages from zero (JAX `build_layered_decoder`)."""
+    tab = qc_tables(frame, rate)
+    order = list(range(tab.q))
+
+    def decode(ti, tp):
+        ti, tp = ti.clone(), tp.clone()
+        c2v = torch.zeros((tab.q, tab.degmax + 2) + tp.shape[1:],
+                          dtype=ti.dtype, device=ti.device)
+        for _ in range(iters):
+            stepper_sweep(tab, order, ti, tp, c2v, offset)
+        return ti, tp
+
+    return decode
 
 
 def _unstage_bits(tab: QCTables, ti, tp) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Quasi-cyclic layer tables of the DVB-T2 LDPC codes (EN 302 755 Annex A/B).
 
-The port's own copy of `qc_tables` and `_layer_order` from
-`sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py`, which imports jax at the top.
+The port's own copy of `qc_tables`, `_layer_order`, `llrs_to_qc` and
+`qc_to_bits` from `sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py`, which
+imports jax at the top.
 
 With checks reindexed as c = t + q*u (t in [0, q), u in [0, 360)), a
 parity-table entry (group g, base b) connects bit (g, m) to check
@@ -76,3 +77,27 @@ def _layer_order(q: int, order) -> list:
     if sorted(out) != list(range(q)):
         raise ValueError(f"layer order is not a permutation of range({q})")
     return out
+
+
+def llrs_to_qc(tab: QCTables, llrs: np.ndarray):
+    """(B, N) natural-order LLRs -> (total_info (G+1,360,B),
+    total_par (q,360,B)) arrays."""
+    b = llrs.shape[0]
+    info = llrs[:, :tab.k].reshape(b, tab.n_groups, 360)
+    total_info = np.empty((tab.n_groups + 1, 360, b), np.float32)
+    total_info[:tab.n_groups] = np.moveaxis(info, 0, -1)
+    total_info[tab.n_groups] = BIG
+    par = llrs[:, tab.k:].reshape(b, 360, tab.q)  # c = t + q*u -> [u, t]
+    total_par = np.ascontiguousarray(
+        np.moveaxis(par, 0, -1).transpose(1, 0, 2))  # (q, 360, B)
+    return total_info.astype(np.float32), total_par.astype(np.float32)
+
+
+def qc_to_bits(tab: QCTables, total_info: np.ndarray,
+               total_par: np.ndarray) -> np.ndarray:
+    """Final totals -> (B, N) hard bits."""
+    b = total_info.shape[-1]
+    info = np.moveaxis(total_info[:tab.n_groups], -1, 0).reshape(b, tab.k)
+    par = np.moveaxis(total_par.transpose(1, 0, 2), -1, 0)  # (B, 360, q)
+    out = np.concatenate([info, par.reshape(b, tab.n - tab.k)], axis=1)
+    return (out < 0).astype(np.uint8)

@@ -10,11 +10,20 @@ global statistics (the JAX `psum`).
 
 JAX builds one program over a mesh of devices and shards a global input;
 here each process is one rank on one device (rank r on `cuda:r`, NCCL; or
-the CPU with gloo) and passes its own shard.  `launch` starts the ranks.
+the CPU with gloo) and passes its own shard.  `launch` starts the ranks;
+`launch(..., backend="gloo")` gives ranks on the card a gloo group, for
+work whose exchanges are host bytes (`parallel/streaming.py`): NCCL takes
+one card per rank, gloo lets several ranks share one.
 
-Not ported: `sharded_receive_step` and part 2 of `dryrun`, the v1 reshard
-step over `rx/jaxdemod.py`, which the port does not need (ROADMAP, "Not
-ported").
+The v1 step `sharded_receive_step` (part 2 of `dryrun`) demods each
+frame through `rx/jaxdemod.py` and decodes the flattened codeword batch
+resharded over the whole (time, cw) mesh.  In JAX that reshard moves
+nothing: the LLRs are sharded over `time` and replicated over `cw`, and
+device (i, j)'s block of the flattened batch under P(("time", "cw")),
+rows (i*c + j) * R .. (i*c + j + 1) * R with R = F*nb / (t*c), lies
+inside its own time shard i, rows i*c*R .. (i + 1)*c*R.  So each rank
+here takes that block out of its own shard's LLRs: a local slice, and
+the step's only collective is again the all-reduce of its two stats.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..dvbt2 import l1 as l1mod
 from ..dvbt2.params import PLPParams, T2Params
 from ..ops import ldpc as fldpc
 
@@ -125,6 +135,72 @@ def sharded_fused_step(p: T2Params, plp: PLPParams, num_blocks: int,
     return step
 
 
+def local_receive_step(p: T2Params, plp: PLPParams, num_blocks: int,
+                       ldpc_iters: int = 8, part: int = 0, parts: int = 1):
+    """One rank's part of `sharded_receive_step`, with no collective:
+    fn(bodies (F, len_frame*symbol_size, 2) f32, inv_nvar) -> (bits
+    (F*nb/parts, n_ldpc) uint8: block `part` of the flattened codeword
+    batch, this rank's stats (2,) f32 [ones, codewords]).  Each frame goes
+    through the v1 demod (`rx/jaxdemod.py`): frame cells, the PLP's slice
+    after the L1 cells, its LLRs; then the f32 flooding decoder, as in
+    JAX (`sharding.py:60`)."""
+    from ..rx import jaxdemod
+
+    fd = jaxdemod.get_frame_demod(p)
+    path = jaxdemod.get_plp_path(plp, num_blocks)
+    decode = fldpc.make_decoder(plp.fec_frame, plp.rate, iters=ldpc_iters,
+                                dtype=torch.float32)
+    # the PLP slice begins right after the mode's L1 cells
+    pre, _ = l1mod.build_l1(p, [plp])
+    l1_cells = l1mod.L1_PRE_CELLS + pre.l1_post_size
+    n_cells = num_blocks * plp.cells_per_fec_block
+
+    def step(bodies: torch.Tensor, inv_nvar):
+        llrs = torch.stack([
+            path.fn(fd.fn(b)[l1_cells:l1_cells + n_cells], inv_nvar)
+            for b in bodies])                            # (F, nb, N)
+        cw = llrs.reshape(-1, llrs.shape[-1])
+        if cw.shape[0] % parts:
+            raise ValueError(f"{cw.shape[0]} codewords do not split into "
+                             f"{parts} equal blocks")
+        rows = cw.shape[0] // parts
+        bits = decode(cw[part * rows:(part + 1) * rows])
+        stats = torch.stack([
+            bits.sum(dtype=torch.int64).to(torch.float32),
+            torch.full((), rows, dtype=torch.float32, device=bits.device)])
+        return bits, stats
+
+    return step
+
+
+def sharded_receive_step(p: T2Params, plp: PLPParams, num_blocks: int,
+                         mesh, ldpc_iters: int = 8):
+    """The v1 multi-GPU receive step (JAX `sharded_receive_step`).
+
+    fn(bodies (F/t, len_frame*symbol_size, 2) f32: this rank's time
+       shard, the frames of its mesh row i (every rank of the row passes
+       the same frames, as JAX replicates them over `cw`), inv_nvar)
+      -> (bits (F*nb/(t*c), n_ldpc) uint8: the rank's block (i*c + j) of
+          the flattened codeword batch, JAX's P(("time", "cw")) sharding,
+          stats (2,) f32 [total ones, total codewords] over the mesh: one
+          all-reduce, the step's only collective)
+
+    The reshard is a local slice (this module's docstring says why)."""
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("the mesh must span the process group")
+    _, c = mesh.shape
+    _, j = mesh.get_coordinate()
+    local = local_receive_step(p, plp, num_blocks, ldpc_iters, part=j,
+                               parts=c)
+
+    def step(bodies: torch.Tensor, inv_nvar):
+        bits, stats = local(bodies, inv_nvar)
+        dist.all_reduce(stats, op=dist.ReduceOp.SUM)
+        return bits, stats
+
+    return step
+
+
 def rank_device(mesh) -> torch.device:
     """This rank's device: the current CUDA device on a CUDA mesh."""
     if mesh.device_type == "cuda":
@@ -142,10 +218,12 @@ def dryrun(p: T2Params, plp: PLPParams, num_blocks: int,
     """Run one sharded step on tiny shapes, on every rank of an
     initialised group of n_devices ranks (the entry hook; `launch` starts
     the ranks).  Part 1: the fused path on bodies, one frame per rank;
-    part 1b: the same from raw device-rate samples through the front end.
-    Shapes and the global codeword count are checked as in JAX.  Part 2 of
-    the JAX dryrun, the v1 reshard step over `rx/jaxdemod.py`, is not
-    ported: the port does not need that module (ROADMAP, "Not ported")."""
+    part 1b: the same from raw device-rate samples through the front end;
+    part 2: the v1 step (`sharded_receive_step`, the per-frame demod of
+    `rx/jaxdemod.py`): each rank decodes its block of the flattened
+    codeword batch as a local slice of its time shard, and the stats make
+    one all-reduce.  Shapes and the global codeword count are checked as
+    in JAX."""
     from ..ops.frontend_device import frontend_raw_len
 
     mesh = make_mesh(n_devices)
@@ -170,6 +248,17 @@ def dryrun(p: T2Params, plp: PLPParams, num_blocks: int,
     _check(tuple(rbits.shape) == want, f"bits {tuple(rbits.shape)}")
     _check(int(rstats[1]) == total * num_blocks, f"stats {rstats.tolist()}")
 
+    # 2. the v1 step: each rank decodes its block of the flattened batch
+    step = sharded_receive_step(p, plp, num_blocks, mesh, ldpc_iters=2)
+    t, _ = mesh.shape
+    i, _ = mesh.get_coordinate()
+    per_row = total // t
+    bits, stats = step(torch.from_numpy(
+        bodies[i * per_row:(i + 1) * per_row]).to(dev), 1.0)
+    _check(tuple(bits.shape) == (num_blocks, plp.fec.n_ldpc),
+           f"v1 bits {tuple(bits.shape)}")
+    _check(int(stats[1]) == total * num_blocks, f"v1 stats {stats.tolist()}")
+
 
 def free_addr() -> str:
     """'localhost:<port>' of a free local port, for a group's rendezvous."""
@@ -178,15 +267,25 @@ def free_addr() -> str:
         return f"localhost:{s.getsockname()[1]}"
 
 
+def default_backend(device_type: str) -> str:
+    """NCCL for ranks on the card, gloo on the CPU."""
+    return "nccl" if device_type == "cuda" else "gloo"
+
+
 @contextlib.contextmanager
-def rank_group(rank: int, world: int, addr: str, device_type: str):
-    """Join the process group of `world` ranks at tcp://addr as `rank`:
-    NCCL on cuda:rank (set before the group is built), or gloo on the
-    CPU.  The group is destroyed on leaving, also on an error."""
+def rank_group(rank: int, world: int, addr: str, device_type: str,
+               backend: str | None = None):
+    """Join the process group of `world` ranks at tcp://addr as `rank`,
+    over `backend` (default: `default_backend(device_type)`).  On the card
+    the rank's current device is cuda:rank with NCCL (set before the group
+    is built: one card per rank) and cuda:(rank mod the card count) with
+    gloo, whose exchanges are host tensors, so ranks may share a card.
+    The group is destroyed on leaving, also on an error."""
+    backend = backend or default_backend(device_type)
     if device_type == "cuda":
-        torch.cuda.set_device(rank)
-    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
-                            init_method=f"tcp://{addr}", rank=rank,
+        torch.cuda.set_device(rank if backend == "nccl"
+                              else rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://{addr}", rank=rank,
                             world_size=world)
     try:
         yield
@@ -194,24 +293,29 @@ def rank_group(rank: int, world: int, addr: str, device_type: str):
         dist.destroy_process_group()
 
 
-def _rank_main(rank, n, addr, device_type, fn, args):
-    with rank_group(rank, n, addr, device_type):
+def _rank_main(rank, n, addr, device_type, backend, fn, args):
+    with rank_group(rank, n, addr, device_type, backend):
         fn(*args)
 
 
-def launch(n: int, fn, *args, device="cuda") -> None:
+def launch(n: int, fn, *args, device="cuda", backend=None) -> None:
     """Run fn(*args) on n ranks, each a process started by
     torch.multiprocessing "spawn" (fn is pickled by its import path, and
     each rank imports the caller's main module: a script that calls this
     keeps its own work under `if __name__ == "__main__":`).  On the card
-    rank r runs on cuda:r with NCCL; device="cpu" gives gloo ranks on the
-    CPU.  The group is built over a free local port and destroyed in every
-    rank.  A rank that fails makes this raise (torch.multiprocessing stops
-    the others)."""
+    rank r runs on cuda:r with NCCL; backend="gloo" lets the ranks share
+    the cards, rank r on cuda:(r mod the card count) (`rank_group`);
+    device="cpu" gives gloo ranks on the CPU.  The group is built over a
+    free local port and destroyed in every rank.  A rank that fails makes
+    this raise (torch.multiprocessing stops the others)."""
     device_type = torch.device(device).type
-    if device_type == "cuda" and torch.cuda.device_count() < n:
-        raise RuntimeError(f"{n} ranks on the card need {n} CUDA devices, "
-                           f"found {torch.cuda.device_count()}")
-    mp.start_processes(_rank_main,
-                       args=(n, free_addr(), device_type, fn, args),
-                       nprocs=n, join=True, start_method="spawn")
+    backend = backend or default_backend(device_type)
+    if device_type == "cuda":
+        have = torch.cuda.device_count()
+        if have == 0 or (backend == "nccl" and have < n):
+            raise RuntimeError(f"{n} {backend} ranks on the card need "
+                               f"{n if backend == 'nccl' else 1} CUDA "
+                               f"devices, found {have}")
+    mp.start_processes(
+        _rank_main, args=(n, free_addr(), device_type, backend, fn, args),
+        nprocs=n, join=True, start_method="spawn")

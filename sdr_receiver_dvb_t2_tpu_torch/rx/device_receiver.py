@@ -123,10 +123,18 @@ class DeviceT2Receiver(T2Receiver):
         return dec(llrs_t.T).cpu().numpy()
 
     def _push_plp(self, plp, dyn, plps, bits, pstat, assembler) -> None:
-        """BCH, descramble and byte pack on the host, then the TS."""
+        """BCH, descramble and byte pack on the host, then the TS.  An
+        attached `regen_sink` sees the descrambled BB frames, and the frame
+        is marked bad when BCH fails on one, as `T2Receiver` does."""
+        fails0 = pstat.bch_failures
         bb = fec_device.bch_correct_batch(plp, bits[:, :plp.fec.n_bch],
                                           pstat)
-        frames_bytes = np.packbits(bbframe.scramble(bb), axis=1)
+        bb = bbframe.scramble(bb)
+        if self.regen_sink is not None:
+            self.regen_sink.add_bb(dyn.id, bb)
+            if pstat.bch_failures > fails0:
+                self.regen_sink.mark_bad()
+        frames_bytes = np.packbits(bb, axis=1)
         # per-PLP framing state: each PLP is its own TS byte stream
         assembler.stream(dyn.id if len(plps) > 1 else None
                          ).push_frames(frames_bytes)
@@ -228,6 +236,8 @@ class DeviceT2Receiver(T2Receiver):
                     self.last_batch_failures += 1
                 continue
             self._last_l1post = l1p_i
+            if self.regen_sink is not None:
+                self.regen_sink.start_frame(params, l1pre, l1p_i)
             for (plp, dyn, _, _), lf in zip(active, lfs):
                 pstat = stats.plp_stats.setdefault(
                     dyn.id, rxdecode.PLPDecodeStats())
@@ -293,6 +303,8 @@ class DeviceT2Receiver(T2Receiver):
                     l1post = self._inband_patched(l1post)
             else:
                 self._last_l1post = l1post
+        if self.regen_sink is not None:
+            self.regen_sink.start_frame(params, l1pre, l1post)
 
         for plp, dyn in zip(plps, l1post.dyn.plp):
             if (self.plp_filter is not None and dyn.id != self.plp_filter) \

@@ -666,21 +666,15 @@ class MultiFramePath:
             return v[s0:s0 + p.k_total]
         return torch.cat([v[s0:], v[:s0 + p.k_total - p.fft_size]])
 
-    def _core(self, sym_r, sym_i, inv_nvar, ordered=False):
-        p, f = self.p, self.n_frames
-        xkr, xki = fft_carrier_major(sym_r, sym_i, self.llr_dtype)
-        # comp-first route (ordered SISO): the row tables carry the
-        # fftshift wrap, so the raw FFT output is indexed directly
-        comp_first = ordered and not p.miso
-        if comp_first:
-            xr, xi = xkr, xki                        # (fft, n_sym, F)
-        else:
-            xr, xi = self._to_carriers(xkr), self._to_carriers(xki)
+    def class_views(self, xr, xi, ordered: bool) -> list:
+        """Each class's (rows, nc*F) planes out of the (rows, n_sym, F)
+        spectra: a contiguous column view of class-ordered symbols, or a
+        strided slice of natural-order ones."""
+        f = self.n_frames
         xs = []
         for ci, cc in enumerate(self._classes):
             c = cc.c
             if ordered:
-                # class-ordered symbols: a contiguous column view
                 lo, hi = int(self._sym_off[ci]) * f, \
                     int(self._sym_off[ci + 1]) * f
                 xs.append((xr.reshape(xr.shape[0], -1)[:, lo:hi],
@@ -690,25 +684,53 @@ class MultiFramePath:
                            c.step)
                 xs.append((xr[:, sl].reshape(xr.shape[0], -1),
                            xi[:, sl].reshape(xi.shape[0], -1)))
+        return xs
+
+    def equalize(self, xs, wrapped: bool) -> torch.Tensor:
+        """Every class equalized into the paired class-flat layout (total,
+        2F), row j = [re_j | im_j].  wrapped: the views are raw FFT rows
+        and the SISO comp-first tables carry the fftshift; otherwise they
+        are active-carrier rows (SISO or MISO)."""
+        f = self.n_frames
         ests = None
-        if p.miso:
+        if self.p.miso:
             ests = [class_pilot_est(cc, a, b)
                     for cc, (a, b) in zip(self._classes, xs)]
-        # paired class-flat layout (total, 2F): row j = [re_j | im_j]
         outs = []
         for cc, (a, b) in zip(self._classes, xs):
-            if comp_first:
+            if wrapped:
                 eqr, eqi = _eq_class_comp(cc, a, b, wrapped=True)
             else:
                 eqr, eqi = _eq_class_planar(cc, a, b, ests)
             outs.append(torch.cat([eqr.reshape(-1, f), eqi.reshape(-1, f)],
                                   1))
-        both = torch.cat(outs)                       # (total, 2F)
+        return torch.cat(outs)                       # (total, 2F)
+
+    def tails(self, both, inv_nvar):
+        """-> ([(n_ldpc, nb, F) LLRs per PLP], the cell-weighted (F,)
+        EVM) of the paired layout."""
         outs, evm = [], 0.0
         for w, tail in zip(self._wts, self._tails):
             out_p, evm_p = tail(both, inv_nvar)
             outs.append(out_p)
             evm = evm + evm_p * w
+        return outs, evm
+
+    def carriers(self, xkr, xki, ordered: bool):
+        """The (fft, n_sym, F) FFT output -> (xr, xi, wrapped): on the
+        comp-first route (ordered SISO) the row tables carry the fftshift
+        wrap, so the raw FFT output is indexed directly (wrapped=True);
+        otherwise the active carriers are sliced out first."""
+        if ordered and not self.p.miso:
+            return xkr, xki, True
+        return self._to_carriers(xkr), self._to_carriers(xki), False
+
+    def _core(self, sym_r, sym_i, inv_nvar, ordered=False):
+        f = self.n_frames
+        xkr, xki = fft_carrier_major(sym_r, sym_i, self.llr_dtype)
+        xr, xi, wrapped = self.carriers(xkr, xki, ordered)
+        both = self.equalize(self.class_views(xr, xi, ordered), wrapped)
+        outs, evm = self.tails(both, inv_nvar)
         out = tuple(outs) if self.multi else outs[0]
         if not (self.emit_l1 or self.emit_evm):
             return out

@@ -1,7 +1,7 @@
 """Control-loop primitives (DSP parity with the reference's loop_filters.hh):
 proportional-integral loop filter with anti-windup and an exponential
-averager, written as pure (state, x) -> (state, y) steps in plain Python on
-the host.
+averager, written as pure (state, x) -> (state, y) steps usable in a loop
+over torch tensors on a device or plain Python on host.
 
 The batch receive chain replaces per-sample loops with per-block feed-forward
 estimation (SURVEY.md §7), but tracking applications (long-capture SCO/CPE
@@ -40,6 +40,16 @@ class PILoopFilter:
         integ = float(np.clip(integ, -self.clamp, self.clamp))
         out = self.kp * error + integ
         return PIState(integ), out
+
+    def scan_fn(self):
+        """(integ, err) -> (integ', out) on torch tensors, for a loop."""
+        kp, ki, cl = self.kp, self.ki, self.clamp
+
+        def f(integ, err):
+            import torch
+            integ = torch.clamp(integ + ki * err, -cl, cl)
+            return integ, kp * err + integ
+        return f
 
 
 @dataclass

@@ -218,23 +218,21 @@ there is none.  The host receive path needs no card.
          "        self.chain = chain      # the chain of the newest run, "
          "for callers\n"),
     ],
-    # PILoopFilter.scan_fn, the one JAX function of the module, is gone
+    # PILoopFilter.scan_fn steps torch tensors instead of jax.numpy arrays
     "utils/loops.py": [
         ("averager, written as pure (state, x) -> (state, y) steps usable "
          "under\n`lax.scan` on device or plain Python on host.",
-         "averager, written as pure (state, x) -> (state, y) steps in plain "
-         "Python on\nthe host."),
-        ('''    def scan_fn(self):
-        """(integ, err) -> (integ', out) for jax.lax.scan."""
-        kp, ki, cl = self.kp, self.ki, self.clamp
-
-        def f(integ, err):
-            import jax.numpy as jnp
+         "averager, written as pure (state, x) -> (state, y) steps usable "
+         "in a loop\nover torch tensors on a device or plain Python on "
+         "host."),
+        ('''        """(integ, err) -> (integ', out) for jax.lax.scan."""
+''', '''        """(integ, err) -> (integ', out) on torch tensors, for a loop."""
+'''),
+        ('''            import jax.numpy as jnp
             integ = jnp.clip(integ + ki * err, -cl, cl)
-            return integ, kp * err + integ
-        return f
-
-''', ""),
+''', '''            import torch
+            integ = torch.clamp(integ + ki * err, -cl, cl)
+'''),
     ],
     # the device trace is a torch.profiler context
     "utils/metrics.py": [
