@@ -1,0 +1,37 @@
+"""The configuration and workload files and BENCHMARK.json agree, and each
+configuration's FEC blocks per frame follow from its mode: 202 for the UK
+32K multiplex."""
+import json
+
+import pytest
+
+from rxbench import cells
+from rxbench.gen import synth
+
+BENCH = json.loads((cells.ROOT / "BENCHMARK.json").read_text())
+
+
+@pytest.mark.parametrize("name, blocks", [("t2_uk_hd_32k", 202)])
+def test_fec_blocks_follow_from_the_mode(name, blocks):
+    cfg = cells.load_json(cells.HERE / "configs" / f"{name}.json")
+    p, plp = synth.mode(cfg)
+    assert synth.fec_blocks_per_frame(p, plp) == blocks
+    assert cfg["fec_blocks_per_frame"] == plp.num_blocks_max == blocks
+    assert {"source", "assumed", "reduced"} <= set(cfg)
+
+
+def test_every_entry_has_its_files():
+    for c in BENCH["configs"]:
+        cfg = cells.load_json(cells.ROOT / c["file"])
+        assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
+        assert cfg["reduced"] == c["reduced"]
+    for w in BENCH["workloads"]:
+        entry, wl, cfg = cells.specs(w["name"])
+        assert wl["frames"] <= cfg["fec_blocks_per_frame"]
+        assert set(wl["limits"]) == {"frontend_err", "llr_err",
+                                     "timing_err_samples"}
+    for m in BENCH["end_to_end"]:
+        assert (cells.HERE / "end_to_end" / f"{m['name']}.py").exists()
+    for m in BENCH["per_layer"]:
+        assert (cells.HERE / "layer_metrics" / f"{m['name']}.py").exists()
+        assert m["moves"] == "rx_msamples_per_s"
