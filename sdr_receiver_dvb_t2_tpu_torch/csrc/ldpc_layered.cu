@@ -33,10 +33,15 @@
 //                              edge j < deg is info edge j, edge deg the
 //                              parity self edge, deg+1 the parity-prev edge
 //   bits (n, B)           u8
-//   ctl  (4 + 2*chunks,)  i32  done flag, sweep count, bad-check sum, CTAs
-//                              arrived at the exit vote; then one such
-//                              (sum, arrivals) pair per chunk for the
-//                              resident launch
+//   ctl  (6 + 3*chunks,)  i32  done flag, sweep count, bad-check sum, CTAs
+//                              arrived at the exit vote, the lockstep
+//                              counters (B x the sweep count, and the
+//                              sweeps run on codewords found clean at the
+//                              vote before them); then per chunk's vote a
+//                              triple: the (sum, arrivals) pair of the
+//                              resident launch, and the codewords whose
+//                              own syndrome failed (both paths; 0 where no
+//                              vote ran).  A fixed exit uses the first 4.
 //   tables                i32  one row of 4 + 2*degmax words per layer in
 //                              visiting order (`pack_tables` in
 //                              ops/ldpc_layered.py): t; deg | phases << 8
@@ -103,6 +108,11 @@
 // memory and the CTAs meet at a barrier of atomics after each chunk.  A
 // larger batch takes one launch per chunk: a launch returns at once when
 // the done flag is set, and the last CTA to arrive at the vote sets it.
+// The counting build (COUNT, launched while the host traces) also keeps
+// the lockstep counters: a CTA whose count is not 0 adds one to the vote's
+// failing codewords, and one thread turns them into the sweeps run on
+// codewords found clean.  The build without them is the hot path's kernel
+// unchanged: a decode that is not traced pays nothing for them.
 // Fixed exit (K3, K4, K5): one launch runs all sweeps and checks nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +127,8 @@ namespace {
 constexpr int NU = 360;       // rows of a QC tile (checks per layer)
 constexpr int THREADS = 384;  // NU rounded up to whole warps
 constexpr int HDR = 4;        // header words of a table row
+constexpr int CTL_HDR = 6;    // header words of ctl, before the votes
+constexpr int CTL_VOTE = 3;   // words of one vote in ctl
 constexpr int MAX_EDGES = 24;  // sign bits of a stored row, below its index
 constexpr int PHASE_LO_EDGES = 16;  // edges whose phase sits in word 3
 constexpr int SMEM_LIMIT = 232448;  // bytes one CTA may use on sm_90
@@ -460,7 +472,8 @@ stage_in(const In* __restrict__ llr, float* ti, float* tp, int* ctl, Dims dm,
     }
   }
   if (blockIdx.x == 0 && blockIdx.y == 0 && ty == 0) {
-    for (int i = tx; i < ctl_words; i += 32) ctl[i] = i == 1 ? max_iters : 0;
+    for (int i = tx; i < ctl_words; i += 32)
+      ctl[i] = i == 1 ? max_iters : i == 4 ? batch * max_iters : 0;
   }
 }
 
@@ -503,8 +516,9 @@ stage_out(const float* __restrict__ ti, const float* __restrict__ tp,
 // once: a cooperative launch) one launch runs all chunks and the CTAs vote
 // after each through a barrier across the grid; without it a launch runs
 // one chunk, returns at once if the batch has converged, and the last CTA
-// to arrive at the vote sets the flag for the next launch.
-template <typename C2V, bool ARGMIN, int UDEG>
+// to arrive at the vote sets the flag for the next launch.  COUNT: keep
+// the lockstep counters in ctl.
+template <typename C2V, bool ARGMIN, int UDEG, bool COUNT>
 __global__ void __launch_bounds__(THREADS, 1)
 sweep_chunk(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
             const int* __restrict__ tables, Dims dm, int n_sweeps,
@@ -619,10 +633,11 @@ sweep_chunk(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
         it0 + it + 1 >= floor_it) {
       // the vote of the chunk that just ended: every CTA adds its failed
       // checks to the chunk's own counter, then waits for all to arrive
-      int* slot = ctl + 4 + 2 * (it / n_sweeps);
+      int* slot = ctl + CTL_HDR + CTL_VOTE * (it / n_sweeps);
       const int bad =
           block_sum(syndrome<UDEG>(dm, s_tab, ti_u, tp_u, u), s_red);
       if (threadIdx.x == 0) {
+        if (COUNT && bad != 0) atomicAdd(slot + 2, 1);
         atomicAdd(slot, bad);
         __threadfence();
         atomicAdd(slot + 1, 1);
@@ -635,9 +650,13 @@ sweep_chunk(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
         if (b == 0 && threadIdx.x == 0) {
           ctl[0] = 1;
           ctl[1] = it0 + it + 1;
+          if (COUNT) ctl[4] = (int)gridDim.x * (it0 + it + 1);
         }
         break;
       }
+      // the next chunk's sweeps on the codewords this vote found clean
+      if (COUNT && b == 0 && threadIdx.x == 0 && it + 1 < total)
+        ctl[5] += ((int)gridDim.x - *(volatile int*)(slot + 2)) * n_sweeps;
     }
   }
 #ifdef LDPC_PROFILE
@@ -654,7 +673,10 @@ sweep_chunk(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
   const int it_now = it0 + total;
   if (!check || resident || it_now < floor_it) return;
   const int bad = block_sum(syndrome<UDEG>(dm, s_tab, ti_u, tp_u, u), s_red);
+  // this launch ran the chunk of sweeps it0 .. it_now - 1
+  int* failing = ctl + CTL_HDR + CTL_VOTE * (it0 / n_sweeps) + 2;
   if (threadIdx.x == 0) {
+    if (COUNT && bad != 0) atomicAdd(failing, 1);
     atomicAdd(ctl + 2, bad);
     __threadfence();
     s_last = atomicAdd(ctl + 3, 1) == (int)gridDim.x - 1;
@@ -665,6 +687,11 @@ sweep_chunk(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
     if (atomicAdd(ctl + 2, 0) == 0) {
       ctl[0] = 1;
       ctl[1] = it_now;
+      if (COUNT) ctl[4] = (int)gridDim.x * it_now;
+    } else if (COUNT && it_now < ctl[1]) {
+      // a launch follows (ctl[1] holds max_iters until the batch stops):
+      // its sweeps on the codewords this vote found clean
+      ctl[5] += ((int)gridDim.x - *(volatile int*)failing) * n_sweeps;
     }
     ctl[2] = 0;
     ctl[3] = 0;
@@ -693,12 +720,12 @@ bool has_uniform(int deg) {
   }
 }
 
-// Prepare sweep_chunk<C2V, ARGMIN, UDEG> for launches with `smem` bytes of
-// dynamic shared memory and give the most CTAs of it the card holds at once
-// (0 if it cannot launch cooperatively): up to that batch the adaptive exit
-// runs as one resident launch.  The CUDA runtime is asked once per device
+// Prepare sweep_chunk<C2V, ARGMIN, UDEG, COUNT> for launches with `smem`
+// bytes of dynamic shared memory and give the most CTAs of it the card
+// holds at once (0 if it cannot launch cooperatively): up to that batch
+// the adaptive exit runs as one resident launch.  The CUDA runtime is asked once per device
 // and size; later decodes read the answer here.
-template <typename C2V, bool ARGMIN, int UDEG>
+template <typename C2V, bool ARGMIN, int UDEG, bool COUNT>
 cudaError_t configure(size_t smem, int* resident) {
   static std::mutex mu;
   static std::map<std::pair<int, size_t>, int> known;
@@ -710,7 +737,7 @@ cudaError_t configure(size_t smem, int* resident) {
   if (it == known.end()) {
     int sms = 0, coop = 0, per_sm = 0;
     // the most any code may ask for, so that one setting serves every size
-    e = cudaFuncSetAttribute(sweep_chunk<C2V, ARGMIN, UDEG>,
+    e = cudaFuncSetAttribute(sweep_chunk<C2V, ARGMIN, UDEG, COUNT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_LIMIT - SMEM_STATIC);
     if (e == cudaSuccess)
@@ -719,7 +746,7 @@ cudaError_t configure(size_t smem, int* resident) {
       e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, sweep_chunk<C2V, ARGMIN, UDEG>, THREADS, smem);
+          &per_sm, sweep_chunk<C2V, ARGMIN, UDEG, COUNT>, THREADS, smem);
     if (e != cudaSuccess) return e;
     it = known.emplace(std::make_pair(dev, smem), coop ? per_sm * sms : 0)
              .first;
@@ -728,15 +755,15 @@ cudaError_t configure(size_t smem, int* resident) {
   return cudaSuccess;
 }
 
-// The sweep launches of one decode with the kernel for `UDEG`.
-template <typename C2V, bool ARGMIN, int UDEG>
-cudaError_t sweeps(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
-                   const int* tab, Dims dm, const int* min_it, int batch,
-                   int max_iters, int check_every, int min_iters,
-                   bool adaptive, size_t smem, float offset,
-                   cudaStream_t st) {
+// The sweep launches of one decode with the kernel for `UDEG` and COUNT.
+template <typename C2V, bool ARGMIN, int UDEG, bool COUNT>
+cudaError_t launches(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
+                     const int* tab, Dims dm, const int* min_it, int batch,
+                     int max_iters, int check_every, int min_iters,
+                     bool adaptive, size_t smem, float offset,
+                     cudaStream_t st) {
   int resident_batch = 0;
-  cudaError_t e = configure<C2V, ARGMIN, UDEG>(smem, &resident_batch);
+  cudaError_t e = configure<C2V, ARGMIN, UDEG, COUNT>(smem, &resident_batch);
   if (e != cudaSuccess) return e;
   if (adaptive) {
     int n_chunks = (max_iters + check_every - 1) / check_every;
@@ -746,33 +773,53 @@ cudaError_t sweeps(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
                       &dm,      &check_every, &n_chunks, &it0, &min_it,
                       &min_iters, &check,  &resident, &first, &offset};
       return cudaLaunchCooperativeKernel(
-          reinterpret_cast<const void*>(sweep_chunk<C2V, ARGMIN, UDEG>),
+          reinterpret_cast<const void*>(
+              sweep_chunk<C2V, ARGMIN, UDEG, COUNT>),
           dim3(batch), dim3(THREADS), args, smem, st);
     }
     for (int ci = 0; ci < n_chunks; ++ci) {
-      sweep_chunk<C2V, ARGMIN, UDEG><<<batch, THREADS, smem, st>>>(
+      sweep_chunk<C2V, ARGMIN, UDEG, COUNT><<<batch, THREADS, smem, st>>>(
           ti, tp, c2v, ctl, tab, dm, check_every, 1, ci * check_every,
           min_it, min_iters, 1, 0, ci == 0, offset);
     }
   } else if (max_iters > 0) {
-    sweep_chunk<C2V, ARGMIN, UDEG><<<batch, THREADS, smem, st>>>(
+    sweep_chunk<C2V, ARGMIN, UDEG, COUNT><<<batch, THREADS, smem, st>>>(
         ti, tp, c2v, ctl, tab, dm, max_iters, 1, 0, nullptr, 0, 0, 0, 1,
         offset);
   }
   return cudaSuccess;
 }
 
+// The sweep launches of one decode; `count` (an adaptive exit only) takes
+// the counting build.
+template <typename C2V, bool ARGMIN, int UDEG>
+cudaError_t sweeps(float* ti, float* tp, Row<C2V>* c2v, int* ctl,
+                   const int* tab, Dims dm, const int* min_it, int batch,
+                   int max_iters, int check_every, int min_iters,
+                   bool adaptive, bool count, size_t smem, float offset,
+                   cudaStream_t st) {
+  if constexpr (!ARGMIN) {
+    if (adaptive && count)
+      return launches<C2V, ARGMIN, UDEG, true>(
+          ti, tp, c2v, ctl, tab, dm, min_it, batch, max_iters, check_every,
+          min_iters, adaptive, smem, offset, st);
+  }
+  return launches<C2V, ARGMIN, UDEG, false>(
+      ti, tp, c2v, ctl, tab, dm, min_it, batch, max_iters, check_every,
+      min_iters, adaptive, smem, offset, st);
+}
+
 // Decode B codewords: llr (n, B) -> bits (n, B) uint8 and, for the adaptive
 // exit, the batch sweep count in ctl[1].  Scratch ti/tp/c2v/ctl and
 // `tables` as laid out above; `udeg` is the code's row degree if all its
 // layers share it and a kernel exists for it, else 0.  max_iters is the
-// fixed sweep count when !adaptive.
+// fixed sweep count when !adaptive; `count` launches the counting build.
 template <typename In, typename C2V, bool ARGMIN>
 int decode(const void* llr, void* bits, void* ti, void* tp, void* c2v,
            void* ctl, const void* tables, const void* min_it, int batch,
            int n, int k, int n_groups, int q, int degmax, int max_iters,
-           int check_every, int min_iters, bool adaptive, int udeg,
-           float offset, void* stream) {
+           int check_every, int min_iters, bool adaptive, bool count,
+           int udeg, float offset, void* stream) {
   Dims dm;
   dm.q = q;
   dm.degmax = degmax;
@@ -796,14 +843,16 @@ int decode(const void* llr, void* bits, void* ti, void* tp, void* c2v,
   stage_in<In><<<tiles, tile_threads, 0, st>>>(
       static_cast<const In*>(llr), tif, tpf, c, dm, batch, k, info_tiles,
       max_iters,
-      adaptive ? 4 + 2 * ((max_iters + check_every - 1) / check_every) : 4);
+      adaptive ? CTL_HDR + CTL_VOTE * ((max_iters + check_every - 1) /
+                                       check_every)
+               : 4);
   cudaError_t e = cudaErrorInvalidValue;
   switch (udeg) {
 #define LDPC_CASE(D)                                                        \
   case D:                                                                   \
     e = sweeps<C2V, ARGMIN, D>(tif, tpf, cv, c, tab, dm, mi, batch,         \
                                max_iters, check_every, min_iters, adaptive, \
-                               smem, offset, st);                           \
+                               count, smem, offset, st);                    \
     break;
     LDPC_CASE(0)
     LDPC_UNIFORM(LDPC_CASE)
@@ -859,26 +908,31 @@ const char* ldpc_layered_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1: llr (n, B) bf16, bf16 c2v, adaptive exit.
+// K1: llr (n, B) bf16, bf16 c2v, adaptive exit; `count`: the lockstep
+// counters in ctl.
 int ldpc_k1_decode(const void* llr, void* bits, void* ti, void* tp,
                    void* c2v, void* ctl, const void* tables,
                    const void* min_it, int batch, int n, int k, int n_groups,
                    int q, int degmax, int max_iters, int check_every,
-                   int min_iters, int udeg, float offset, void* stream) {
+                   int min_iters, int udeg, int count, float offset,
+                   void* stream) {
   return decode<__nv_bfloat16, __nv_bfloat16, false>(
       llr, bits, ti, tp, c2v, ctl, tables, min_it, batch, n, k, n_groups, q,
-      degmax, max_iters, check_every, min_iters, true, udeg, offset, stream);
+      degmax, max_iters, check_every, min_iters, true, count != 0, udeg,
+      offset, stream);
 }
 
-// K2: llr (n, B) f32, bf16 c2v, adaptive exit.
+// K2: llr (n, B) f32, bf16 c2v, adaptive exit; `count` as K1's.
 int ldpc_k2_decode(const void* llr, void* bits, void* ti, void* tp,
                    void* c2v, void* ctl, const void* tables,
                    const void* min_it, int batch, int n, int k, int n_groups,
                    int q, int degmax, int max_iters, int check_every,
-                   int min_iters, int udeg, float offset, void* stream) {
+                   int min_iters, int udeg, int count, float offset,
+                   void* stream) {
   return decode<float, __nv_bfloat16, false>(
       llr, bits, ti, tp, c2v, ctl, tables, min_it, batch, n, k, n_groups, q,
-      degmax, max_iters, check_every, min_iters, true, udeg, offset, stream);
+      degmax, max_iters, check_every, min_iters, true, count != 0, udeg,
+      offset, stream);
 }
 
 // K3: llr (n, B) f32, bf16 c2v, `iters` sweeps.
@@ -888,7 +942,7 @@ int ldpc_k3_decode(const void* llr, void* bits, void* ti, void* tp,
                    int udeg, float offset, void* stream) {
   return decode<float, __nv_bfloat16, false>(
       llr, bits, ti, tp, c2v, ctl, tables, nullptr, batch, n, k, n_groups, q,
-      degmax, iters, 1, 0, false, udeg, offset, stream);
+      degmax, iters, 1, 0, false, false, udeg, offset, stream);
 }
 
 // K5: llr (n, B) bf16, bf16 c2v, `iters` sweeps.
@@ -898,7 +952,7 @@ int ldpc_k5_decode(const void* llr, void* bits, void* ti, void* tp,
                    int udeg, float offset, void* stream) {
   return decode<__nv_bfloat16, __nv_bfloat16, false>(
       llr, bits, ti, tp, c2v, ctl, tables, nullptr, batch, n, k, n_groups, q,
-      degmax, iters, 1, 0, false, udeg, offset, stream);
+      degmax, iters, 1, 0, false, false, udeg, offset, stream);
 }
 
 // K4: llr (n, B) f32, f32 c2v, `iters` sweeps, the argmin leave-one-out.
@@ -908,7 +962,7 @@ int ldpc_k4_decode(const void* llr, void* bits, void* ti, void* tp,
                    int udeg, float offset, void* stream) {
   return decode<float, float, true>(
       llr, bits, ti, tp, c2v, ctl, tables, nullptr, batch, n, k, n_groups,
-      q, degmax, iters, 1, 0, false, udeg, offset, stream);
+      q, degmax, iters, 1, 0, false, false, udeg, offset, stream);
 }
 
 }  // extern "C"

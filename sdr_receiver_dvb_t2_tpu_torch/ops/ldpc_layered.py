@@ -38,6 +38,7 @@ from ..dvbt2.params import CodeRate, FECFrame
 
 from .. import _build
 from .._device import DeviceConst
+from ..utils.metrics import TRACER, count
 from .ldpc_tables import BIG, QCTables, _layer_order, qc_tables
 
 NU = 360
@@ -279,26 +280,52 @@ def _unstage_bits(tab: QCTables, ti, tp) -> torch.Tensor:
 
 
 def decode_plain(tab: QCTables, order: list, v: torch.Tensor, min_it,
-                 max_iters: int, check_every: int, min_iters: int):
+                 max_iters: int, check_every: int, min_iters: int,
+                 failing: list | None = None):
     """K1's and K2's semantics in plain PyTorch: sweeps in chunks of
     check_every; the whole batch's syndrome is counted once the sweep count
     reaches max(min_it, min_iters); stop when it is 0; the count is
-    max_iters if it never is.  -> (bits (N, B) uint8, iters () int32)."""
+    max_iters if it never is.  -> (bits (N, B) uint8, iters () int32).
+    `failing`, when given, gets one int per chunk's vote, as the kernel's
+    ctl holds them: the codewords whose own syndrome failed there, 0 where
+    no vote ran."""
     ti, tp = _stage_nb(tab, v)
     c2v = torch.zeros((tab.q, tab.degmax + 2) + tp.shape[1:],
                       device=v.device)
     floor_it = max(int(min_it), min_iters)
     iters = max_iters
-    for ci in range((max_iters + check_every - 1) // check_every):
+    n_votes = (max_iters + check_every - 1) // check_every
+    votes = [0] * n_votes
+    for ci in range(n_votes):
         for _ in range(check_every):
             layered_sweep(tab, order, ti, tp, c2v)
         it_now = (ci + 1) * check_every
-        if it_now >= floor_it and int(
-                _syndrome_weight(tab, ti, tp).sum()) == 0:
-            iters = it_now
-            break
+        if it_now >= floor_it:
+            bad = _syndrome_weight(tab, ti, tp)
+            votes[ci] = int((bad != 0).sum())
+            if votes[ci] == 0:
+                iters = it_now
+                break
+    if failing is not None:
+        failing[:] = votes
     return (_unstage_bits(tab, ti, tp),
             torch.tensor(iters, dtype=torch.int32, device=v.device))
+
+
+def lockstep_counts(failing, iters, batch: int, check_every: int):
+    """The batch-lockstep exit's counters of one adaptive decode, from
+    the codewords failing at each chunk's vote (`failing`, (V,) integer
+    tensor, 0 where no vote ran) and the sweeps it ran (`iters`).
+    -> (codeword_sweeps: batch x iters, clean_codeword_sweeps: the sweeps
+    run on codewords whose syndrome was already clean at the vote before
+    them).  A vote with codewords failing is followed by another chunk of
+    `check_every` sweeps, but for the last; a vote with none ends the
+    decode, and one that did not run reads 0.  Codewords that clear before
+    the first vote are not seen, so the second count is a lower bound.
+    The kernel keeps the same two counts in its ctl (CTL_LOCKSTEP)."""
+    f = failing[:-1].long()
+    clean = ((batch - f) * (f > 0)).sum() * check_every
+    return iters.long() * batch, clean
 
 
 def decode_fixed_plain(tab: QCTables, v: torch.Tensor, iters: int,
@@ -329,7 +356,7 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name in ("ldpc_k1_decode", "ldpc_k2_decode"):
             fn = getattr(lib, name)
-            fn.argtypes = [p] * 8 + [i] * 10 + [f, p]
+            fn.argtypes = [p] * 8 + [i] * 11 + [f, p]
             fn.restype = i
         for name in ("ldpc_k3_decode", "ldpc_k4_decode", "ldpc_k5_decode"):
             fn = getattr(lib, name)
@@ -369,6 +396,14 @@ SMEM_BYTES = 232448 - 128
 MAX_EDGES = 24
 # edges whose 2-bit phase sits in word 3; the later ones go to word 1
 PHASE_LO_EDGES = 16
+# the kernel's control words: a header (done, sweeps, the bad-check sum
+# and arrivals of a launch per chunk, then the lockstep counters: B x
+# sweeps, and the clean codeword-sweeps), then per exit vote the resident
+# launch's sum and arrivals and the codewords failing there
+CTL_HDR = 6
+CTL_VOTE = 3
+CTL_LOCKSTEP = slice(4, 6)
+CTL_FAILING = slice(CTL_HDR + 2, None, CTL_VOTE)
 # the same constants in the kernel source, in the order of its
 # `ldpc_layered_layout`; `_lib` refuses a library that disagrees
 TABLE_LAYOUT = (TABLE_HDR, SRC_EARLY, SRC_CARRY_SELF, SRC_CARRY_PREV,
@@ -472,9 +507,9 @@ def check_fits(tab: QCTables, limit: int = SMEM_BYTES) -> None:
 def _prepare(name: str, tab: QCTables, tables: torch.Tensor,
              v: torch.Tensor, in_dtype, c2v_dtype, votes: int = 0):
     """Check the inputs of one launch and allocate its outputs and
-    scratch (`votes`: exit votes of an adaptive decode, each with a
-    counter pair in ctl).  -> (lib, x (N, B) contiguous, udeg, bits, ti, tp,
-    c2v, ctl)."""
+    scratch (`votes`: exit votes of an adaptive decode, each with CTL_VOTE
+    words in ctl after its CTL_HDR).  -> (lib, x (N, B) contiguous, udeg,
+    bits, ti, tp, c2v, ctl)."""
     if not v.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
     if v.dtype != in_dtype or v.dim() != 2 or v.shape[0] != tab.n \
@@ -501,7 +536,8 @@ def _prepare(name: str, tab: QCTables, tables: torch.Tensor,
     ti = torch.empty((b, tab.n_groups, NU), dtype=torch.float32, device=dev)
     tp = torch.empty((b, tab.q, NU), dtype=torch.float32, device=dev)
     c2v = torch.empty((b, tab.q, NU, rb // 4), dtype=torch.int32, device=dev)
-    ctl = torch.empty(4 + 2 * votes, dtype=torch.int32, device=dev)
+    ctl = torch.empty(CTL_HDR + CTL_VOTE * votes, dtype=torch.int32,
+                      device=dev)
     return lib, v.contiguous(), udeg, bits, ti, tp, c2v, ctl
 
 
@@ -512,7 +548,7 @@ def _raise_on(lib, name: str, err: int) -> None:
 
 
 def _adaptive_launch(name, in_dtype, tab, tables, v, min_it, max_iters,
-                     check_every, min_iters):
+                     check_every, min_iters, count):
     if min_it.device != v.device or min_it.dtype != torch.int32 \
             or min_it.numel() != 1:
         raise ValueError(f"{name}: min_it must be one int32 on the LLRs' "
@@ -528,10 +564,10 @@ def _adaptive_launch(name, in_dtype, tab, tables, v, min_it, max_iters,
     err = fn(x.data_ptr(), bits.data_ptr(), ti.data_ptr(), tp.data_ptr(),
              c2v.data_ptr(), ctl.data_ptr(), tables.data_ptr(), mi.data_ptr(),
              v.shape[1], tab.n, tab.k, tab.n_groups, tab.q, tab.degmax,
-             max_iters, check_every, min_iters, udeg, OFFSET,
+             max_iters, check_every, min_iters, udeg, int(count), OFFSET,
              torch.cuda.current_stream(v.device).cuda_stream)
     _raise_on(lib, name, err)
-    return bits, ctl[1]
+    return bits, ctl
 
 
 def _fixed_launch(name, k_fn, tab, tables, v, iters, c2v_dtype,
@@ -549,11 +585,15 @@ def _fixed_launch(name, k_fn, tab, tables, v, iters, c2v_dtype,
 
 def ldpc_layered_cuda(tab: QCTables, tables: torch.Tensor, v: torch.Tensor,
                       min_it: torch.Tensor, max_iters: int, check_every: int,
-                      min_iters: int):
-    """K1: (N, B) bf16 LLRs on the card -> (bits (N, B) uint8, iters ()
-    int32 on the card); nothing is read back to the host."""
+                      min_iters: int, count: bool = False):
+    """K1: (N, B) bf16 LLRs on the card -> (bits (N, B) uint8, ctl int32:
+    the sweeps at ctl[1]; with `count` (the kernel's counting build) also
+    the lockstep counters at CTL_LOCKSTEP and each exit vote's failing
+    codewords at CTL_FAILING; on the card); nothing is read back to the
+    host."""
     out = _adaptive_launch("ldpc_layered_cuda", torch.bfloat16, tab, tables,
-                           v, min_it, max_iters, check_every, min_iters)
+                           v, min_it, max_iters, check_every, min_iters,
+                           count)
     ldpc_layered_cuda.launches += 1
     return out
 
@@ -561,11 +601,11 @@ def ldpc_layered_cuda(tab: QCTables, tables: torch.Tensor, v: torch.Tensor,
 def ldpc_layered_adaptive_cuda(tab: QCTables, tables: torch.Tensor,
                                v: torch.Tensor, min_it: torch.Tensor,
                                max_iters: int, check_every: int,
-                               min_iters: int):
+                               min_iters: int, count: bool = False):
     """K2: as K1 from (N, B) f32 LLRs, which are never rounded."""
     out = _adaptive_launch("ldpc_layered_adaptive_cuda", torch.float32, tab,
                            tables, v, min_it, max_iters, check_every,
-                           min_iters)
+                           min_iters, count)
     ldpc_layered_adaptive_cuda.launches += 1
     return out
 
@@ -653,20 +693,55 @@ class AdaptiveDecoderNB:
         return self.kernel(llrs_t, min_it)
 
     def kernel(self, llrs_t: torch.Tensor, min_it=0):
-        """The CUDA kernel (CUDA tensors only)."""
+        """The CUDA kernel (CUDA tensors only); its counting build while
+        the tracer is on."""
+        bits, ctl = self._launch(llrs_t, min_it, TRACER.on)
+        return bits, ctl[1]
+
+    def kernel_votes(self, llrs_t: torch.Tensor, min_it=0):
+        """The kernel's counting build -> (bits, iters, failing (V,)
+        int32: the codewords whose syndrome failed at each exit vote, 0
+        where none ran, lockstep (2,) int32: the kernel's
+        `lockstep_counts`), all on the card."""
+        bits, ctl = self._launch(llrs_t, min_it, True)
+        return bits, ctl[1], ctl[CTL_FAILING], ctl[CTL_LOCKSTEP]
+
+    def _launch(self, llrs_t: torch.Tensor, min_it, count: bool):
         v = self._input(llrs_t)
         launch = (ldpc_layered_cuda if self.in_dtype == torch.bfloat16
                   else ldpc_layered_adaptive_cuda)
-        return launch(self.tab, self._tables.on(v.device), v,
-                      _min_it_on(min_it, v.device), self.max_iters,
-                      self.check_every, self.min_iters)
+        bits, ctl = launch(self.tab, self._tables.on(v.device), v,
+                           _min_it_on(min_it, v.device), self.max_iters,
+                           self.check_every, self.min_iters, count)
+        if TRACER.on:
+            _count(*ctl[CTL_LOCKSTEP])
+        return bits, ctl
 
     def plain(self, llrs_t: torch.Tensor, min_it=0):
         """The plain PyTorch version on any device (the kernel's
         reference on the card)."""
-        return decode_plain(self.tab, self.order, self._input(llrs_t),
-                            min_it, self.max_iters, self.check_every,
-                            self.min_iters)
+        bits, iters, _, _ = self.plain_votes(llrs_t, min_it)
+        return bits, iters
+
+    def plain_votes(self, llrs_t: torch.Tensor, min_it=0):
+        """The plain version -> `kernel_votes`' four results."""
+        v = self._input(llrs_t)
+        failing = []
+        bits, iters = decode_plain(self.tab, self.order, v, min_it,
+                                   self.max_iters, self.check_every,
+                                   self.min_iters, failing=failing)
+        failing = torch.tensor(failing, dtype=torch.int32, device=v.device)
+        sweeps, clean = lockstep_counts(failing, iters, v.shape[1],
+                                        self.check_every)
+        if TRACER.on:
+            _count(sweeps, clean)
+        return bits, iters, failing, torch.stack([sweeps, clean]).int()
+
+
+def _count(sweeps, clean) -> None:
+    """The tracer's LDPC counters of one decode."""
+    count("ldpc.codeword_sweeps", sweeps)
+    count("ldpc.clean_codeword_sweeps", clean)
 
 
 def make_adaptive_decoder_nb_fused_io(frame: FECFrame, rate: CodeRate,

@@ -128,7 +128,8 @@ def main(argv=None):
     ap.add_argument("--max-blocks", type=int, default=None)
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the run (view "
-                         "with TensorBoard)")
+                         "with TensorBoard) and the receiver's t2.* spans "
+                         "and counters (DIR/t2_trace.json)")
     ap.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
                     help="torch device of --device-path, --flood-ldpc and "
                          "the stage plots (default: the card; no card is "

@@ -16,6 +16,7 @@ import numpy as np
 
 from ..dvbt2 import bbframe, l1 as l1mod
 from ..dvbt2.params import Bandwidth, T2Params, PLPParams, SAMPLE_RATE
+from ..utils.metrics import span
 from . import decode as rxdecode
 from . import demod as rxdemod
 from . import p1_detect as rxp1
@@ -243,15 +244,16 @@ class T2Receiver:
         reference's set_guard_interval_by_brute_force,
         dvbt2_demodulator.cpp:481-545).  Returns (params, l1pre) or None."""
         from ..dvbt2.params import GuardInterval
-        for gi in (GuardInterval.GI_1_128, GuardInterval.GI_1_32,
-                   GuardInterval.GI_1_16, GuardInterval.GI_19_256,
-                   GuardInterval.GI_1_8, GuardInterval.GI_19_128,
-                   GuardInterval.GI_1_4):
-            for ext in (True, False):
-                for pp in range(8):
-                    cand = self._try_l1pre(x, p1, gi, ext, pp)
-                    if cand is not None:
-                        return cand
+        with span("t2.acquire.scan_mode"):
+            for gi in (GuardInterval.GI_1_128, GuardInterval.GI_1_32,
+                       GuardInterval.GI_1_16, GuardInterval.GI_19_256,
+                       GuardInterval.GI_1_8, GuardInterval.GI_19_128,
+                       GuardInterval.GI_1_4):
+                for ext in (True, False):
+                    for pp in range(8):
+                        cand = self._try_l1pre(x, p1, gi, ext, pp)
+                        if cand is not None:
+                            return cand
         return None
 
     def _measure_sco(self, x, p1_start, params, t0,
@@ -351,27 +353,31 @@ class T2Receiver:
         accumulators are zeroed on `ls`, so the caller cannot double
         count them (a 4-round exhaustion used to re-add the last
         applied correction).  (None, 0.0, 1.0, x) when acquisition
-        never locks."""
+        never locks.  Traced as the span "t2.acquire", a
+        "t2.acquire.round" per round and "t2.acquire.scan_mode" inside
+        (`utils.metrics.span`)."""
         from . import frontend
         cfo_acc, ratio_acc = 0.0, 1.0
         ls = None
-        for _ in range(max_rounds):
-            ls = self.acquire(x)
-            if ls is None:
-                return None, cfo_acc, ratio_acc, x
-            if abs(ls.cfo_hz) > 2.0:
-                n = np.arange(len(x))
-                x = (x * np.exp(-2j * np.pi * ls.cfo_hz * n / self.fs)
-                     ).astype(np.complex64)
-                cfo_acc += ls.cfo_hz
-                ls.cfo_hz = 0.0
-                continue
-            if abs(ls.sco) > 2e-7:
-                x = frontend.sinc_resample(x, 1.0 + ls.sco)
-                ratio_acc *= (1.0 + ls.sco)
-                ls.sco = 0.0
-                continue
-            break
+        with span("t2.acquire"):
+            for _ in range(max_rounds):
+                with span("t2.acquire.round"):
+                    ls = self.acquire(x)
+                    if ls is None:
+                        return None, cfo_acc, ratio_acc, x
+                    if abs(ls.cfo_hz) > 2.0:
+                        n = np.arange(len(x))
+                        x = (x * np.exp(-2j * np.pi * ls.cfo_hz * n
+                                        / self.fs)).astype(np.complex64)
+                        cfo_acc += ls.cfo_hz
+                        ls.cfo_hz = 0.0
+                        continue
+                    if abs(ls.sco) > 2e-7:
+                        x = frontend.sinc_resample(x, 1.0 + ls.sco)
+                        ratio_acc *= (1.0 + ls.sco)
+                        ls.sco = 0.0
+                        continue
+                    break
         return (ls, cfo_acc + ls.cfo_hz,
                 ratio_acc * (1.0 + ls.sco), x)
 

@@ -22,6 +22,7 @@ from ..ops import fec_device
 from ..ops import frontend_device as fdev
 from ..ops.ldpc_layered import (make_adaptive_decoder_nb_fused_io,
                                 make_decoder_nb)
+from ..utils.metrics import span
 from .fusedpath import MultiFramePath
 
 # below ~25 dB (inv_nvar < 316) convergence takes >= 10 sweeps, so the
@@ -68,6 +69,12 @@ class Superstep:
     time that stage's work has been enqueued (a profiler records an event
     there; the LDPC and the tail report once per frame).
 
+    While the tracer of `utils/metrics` is on, a step records the spans
+    "t2.step" (id `step`), "t2.frontend", "t2.demod_llr" and, per frame
+    (id `frame`), "t2.ldpc" and "t2.fec_tail" with its parts
+    "t2.fec_tail.bch", ".pack" and ".hash"; the decoder adds the LDPC
+    counters (`ops/ldpc_layered.lockstep_counts`).
+
     `fixed_iters` > 0 swaps the adaptive decoder (K1) for `fixed_iters`
     sweeps of the fixed one (`make_decoder_nb`: K3 at C2/3), which ignores
     the floor; the sweep count is then `fixed_iters` per frame."""
@@ -94,37 +101,53 @@ class Superstep:
                                                       plp.rate)
         self.bb_pack = fec_device.make_bb_bytes_nb(plp.fec_frame, plp.rate)
         self.weights = DeviceConst(weights.astype(np.int64))
+        self.steps = 0    # steps run: the `step` id of their spans
 
     def __call__(self, raw_r, raw_i, inv_nvar, track, keep=(), mark=None):
         mark = mark or (lambda stage: None)
+        step = self.steps
+        self.steps += 1
+        with span("t2.step", step=step):
+            return self._step(raw_r, raw_i, inv_nvar, track, keep, mark)
+
+    def _step(self, raw_r, raw_i, inv_nvar, track, keep, mark):
         dev = raw_r.device
         n_bch = self.plp.fec.n_bch
-        (sr, si), _, _ = self.frontend(raw_r, raw_i, track[0], track[1],
-                                       track[2], track[3])
+        with span("t2.frontend"):
+            (sr, si), _, _ = self.frontend(raw_r, raw_i, track[0], track[1],
+                                           track[2], track[3])
         mark("frontend")
-        inv = torch.as_tensor(inv_nvar, dtype=torch.float32, device=dev)
-        # one frame-major copy (F, N, B): each decode then reads a
-        # contiguous (N, B) block instead of a stride-F gather of its own
-        llrs = self.mf.syms(sr, si, inv).permute(2, 0, 1).contiguous()
-        min_it = torch.where(inv >= FLOOR_INV_NVAR, 0, FLOOR_SWEEPS).to(
-            torch.int32)
-        wb = self.weights.on(dev)
-        iters = torch.zeros((), dtype=torch.int32, device=dev)
+        with span("t2.demod_llr"):
+            inv = torch.as_tensor(inv_nvar, dtype=torch.float32, device=dev)
+            # one frame-major copy (F, N, B): each decode then reads a
+            # contiguous (N, B) block instead of a stride-F gather of its
+            # own
+            llrs = self.mf.syms(sr, si, inv).permute(2, 0, 1).contiguous()
+            min_it = torch.where(inv >= FLOOR_INV_NVAR, 0, FLOOR_SWEEPS).to(
+                torch.int32)
+            wb = self.weights.on(dev)
+            iters = torch.zeros((), dtype=torch.int32, device=dev)
         mark("demod_llr")
         sums, oks, kept = [], [], {}
         for fi in range(self.n_frames):
-            if self.fixed_iters:
-                bits, it = self.decode(llrs[fi]), self.fixed_iters
-            else:
-                bits, it = self.decode(llrs[fi], min_it)
+            with span("t2.ldpc", frame=fi):
+                if self.fixed_iters:
+                    bits, it = self.decode(llrs[fi]), self.fixed_iters
+                else:
+                    bits, it = self.decode(llrs[fi], min_it)
             mark("ldpc")
-            ok = self.bch_check(bits[:n_bch])
-            byts = self.bb_pack(bits)                    # (kb8, B) int32
-            sums.append(_wrap_i32((byts.long()[None] * wb).sum((1, 2))))
-            oks.append(ok.sum(dtype=torch.int32))
-            iters = iters + it
-            if fi in keep:
-                kept[fi] = byts
+            with span("t2.fec_tail", frame=fi):
+                with span("t2.fec_tail.bch"):
+                    ok = self.bch_check(bits[:n_bch])
+                    oks.append(ok.sum(dtype=torch.int32))
+                with span("t2.fec_tail.pack"):
+                    byts = self.bb_pack(bits)            # (kb8, B) int32
+                with span("t2.fec_tail.hash"):
+                    sums.append(_wrap_i32((byts.long()[None] * wb).sum(
+                        (1, 2))))
+                iters = iters + it
+                if fi in keep:
+                    kept[fi] = byts
             mark("fec_tail")
         kept_bytes = (torch.stack([kept[fi] for fi in keep]) if keep else
                       torch.zeros((0,) + byts.shape, dtype=torch.int32,
