@@ -389,9 +389,12 @@ SRC_EARLY = 0        # loaded one layer ahead (the layer before leaves it)
 SRC_CARRY_SELF = 1   # the self total the thread wrote in the layer before
 SRC_CARRY_PREV = 2   # the prev total the thread wrote in the layer before
 SRC_LATE = 3         # loaded behind the barrier (written across threads)
-# shared memory one CTA may use on the H100, less what the kernel keeps for
-# its static variables
-SMEM_BYTES = 232448 - 128
+# shared memory the kernel keeps for its static variables, and what one CTA
+# may use beside them on the H100
+SMEM_STATIC = 128
+SMEM_BYTES = 232448 - SMEM_STATIC
+# threads of one CTA: one per check row, NU rounded up to whole warps
+THREADS = 384
 # edges (degmax + 2) whose sign bits fit a stored row beside its index
 MAX_EDGES = 24
 # edges whose 2-bit phase sits in word 3; the later ones go to word 1
@@ -502,6 +505,38 @@ def check_fits(tab: QCTables, limit: int = SMEM_BYTES) -> None:
         raise ValueError(f"the code's tables and info totals need "
                          f"{smem_bytes(tab)} bytes of shared memory; one CTA "
                          f"has {limit}")
+
+
+def resident_ctas(tab: QCTables, device) -> int:
+    """The most CTAs of one decode of `tab`'s code that the card
+    `device` could hold at once: its SMs times what an SM's threads and
+    shared memory allow.  The launcher's `configure` asks the CUDA
+    runtime, which also counts the kernel's registers and the shared
+    memory the runtime reserves per CTA, so its answer is never larger: a
+    batch above this one runs one launch per chunk, never the resident
+    cooperative launch."""
+    pr = torch.cuda.get_device_properties(device)
+    per_sm = min(pr.max_threads_per_multi_processor // THREADS,
+                 pr.shared_memory_per_multiprocessor
+                 // (smem_bytes(tab) + SMEM_STATIC))
+    return per_sm * pr.multi_processor_count
+
+
+def overlaps(batch: int, resident: int) -> bool:
+    """Whether decodes of `batch` codewords gain from running beside one
+    another on separate streams: one decode needs more CTAs than the card
+    holds at once (`resident`, `resident_ctas`), so each of its launches
+    ends in a wave that leaves SMs idle, which another decode's CTAs can
+    fill.  A batch the card holds at once runs as one cooperative launch,
+    which is never run beside another."""
+    return batch > resident
+
+
+def decodes_overlap(tab: QCTables, batch: int, device) -> bool:
+    """`overlaps` for decodes of `batch` codewords on `device`: never on
+    the CPU."""
+    return torch.device(device).type == "cuda" and overlaps(
+        batch, resident_ctas(tab, device))
 
 
 def _prepare(name: str, tab: QCTables, tables: torch.Tensor,

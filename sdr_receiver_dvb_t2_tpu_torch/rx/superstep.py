@@ -9,8 +9,18 @@ SNR-steered first-check floor, the BCH gate, the descramble + byte pack
 and a slot-weighted 64-bit hash.  Everything stays on the device; the
 caller fetches the small results and reassembles the TS on the host
 (`bbframe.TSAssembler`).
+
+Where one frame's decode needs more CTAs than the card holds at once
+(`ldpc_layered.decodes_overlap`: the UK HD mode's 202 blocks on an H100's
+132 SMs), each launch of the decoder ends in a wave that leaves SMs idle.
+The frames' decodes and tails then run on SIDE_STREAMS side streams in
+turn, so that one frame's last wave and the launches that return at once
+after its exit vote share the card with the next frame's CTAs.  Every
+frame's work is the same as on one stream.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -20,9 +30,10 @@ from ..dvbt2.params import PLPParams, T2Params
 from .._device import DeviceConst
 from ..ops import fec_device
 from ..ops import frontend_device as fdev
-from ..ops.ldpc_layered import (make_adaptive_decoder_nb_fused_io,
+from ..ops.ldpc_layered import (decodes_overlap,
+                                make_adaptive_decoder_nb_fused_io,
                                 make_decoder_nb)
-from ..utils.metrics import span
+from ..utils.metrics import count, span
 from .fusedpath import MultiFramePath
 
 # below ~25 dB (inv_nvar < 316) convergence takes >= 10 sweeps, so the
@@ -33,6 +44,9 @@ FLOOR_SWEEPS = 8
 # reversed layer order
 MAX_SWEEPS = 24
 HALF = 8          # Farrow resampler half-width (17 taps)
+# side streams the frames' decodes and tails take in turn where decodes
+# overlap (3 ran the 19 dB step ~1% faster than 2 on an H100; PERF.md)
+SIDE_STREAMS = 3
 
 
 def hash_weights(kb8: int, num_blocks: int, seed: int = 0xDB72) -> np.ndarray:
@@ -67,13 +81,16 @@ class Superstep:
     are the hash weights (`hash_weights`).  `mark`, when given, is called
     with a stage's name ("frontend", "demod_llr", "ldpc", "fec_tail") each
     time that stage's work has been enqueued (a profiler records an event
-    there; the LDPC and the tail report once per frame).
+    there; the LDPC and the tail report once per frame, on the stream
+    that ran the frame).
 
     While the tracer of `utils/metrics` is on, a step records the spans
     "t2.step" (id `step`), "t2.frontend", "t2.demod_llr" and, per frame
     (id `frame`), "t2.ldpc" and "t2.fec_tail" with its parts
     "t2.fec_tail.bch", ".pack" and ".hash"; the decoder adds the LDPC
-    counters (`ops/ldpc_layered.lockstep_counts`).
+    counters (`ops/ldpc_layered.lockstep_counts`) and the step the
+    counter "ldpc.overlapped_decodes": its frames decoded on side streams
+    (F where decodes overlap, else 0).
 
     `fixed_iters` > 0 swaps the adaptive decoder (K1) for `fixed_iters`
     sweeps of the fixed one (`make_decoder_nb`: K3 at C2/3), which ignores
@@ -102,6 +119,8 @@ class Superstep:
         self.bb_pack = fec_device.make_bb_bytes_nb(plp.fec_frame, plp.rate)
         self.weights = DeviceConst(weights.astype(np.int64))
         self.steps = 0    # steps run: the `step` id of their spans
+        self._code = self.decode.tab
+        self._sides = {}  # device -> its side streams, or () for none
 
     def __call__(self, raw_r, raw_i, inv_nvar, track, keep=(), mark=None):
         mark = mark or (lambda stage: None)
@@ -126,30 +145,58 @@ class Superstep:
             min_it = torch.where(inv >= FLOOR_INV_NVAR, 0, FLOOR_SWEEPS).to(
                 torch.int32)
             wb = self.weights.on(dev)
-            iters = torch.zeros((), dtype=torch.int32, device=dev)
         mark("demod_llr")
-        sums, oks, kept = [], [], {}
+        sides = self._side_streams(dev)
+        count("ldpc.overlapped_decodes", self.n_frames if sides else 0)
+        caller = torch.cuda.current_stream(dev) if sides else None
+        for side in sides:
+            side.wait_stream(caller)       # the LLRs, min_it, the weights
+        sums, oks, its, kept = [], [], [], {}
         for fi in range(self.n_frames):
-            with span("t2.ldpc", frame=fi):
-                if self.fixed_iters:
-                    bits, it = self.decode(llrs[fi]), self.fixed_iters
-                else:
-                    bits, it = self.decode(llrs[fi], min_it)
-            mark("ldpc")
-            with span("t2.fec_tail", frame=fi):
-                with span("t2.fec_tail.bch"):
-                    ok = self.bch_check(bits[:n_bch])
-                    oks.append(ok.sum(dtype=torch.int32))
-                with span("t2.fec_tail.pack"):
-                    byts = self.bb_pack(bits)            # (kb8, B) int32
-                with span("t2.fec_tail.hash"):
-                    sums.append(_wrap_i32((byts.long()[None] * wb).sum(
-                        (1, 2))))
-                iters = iters + it
-                if fi in keep:
-                    kept[fi] = byts
-            mark("fec_tail")
+            with (torch.cuda.stream(sides[fi % len(sides)]) if sides
+                  else contextlib.nullcontext()):
+                with span("t2.ldpc", frame=fi):
+                    if self.fixed_iters:
+                        bits = self.decode(llrs[fi])
+                    else:
+                        bits, it = self.decode(llrs[fi], min_it)
+                        its.append(it)
+                mark("ldpc")
+                with span("t2.fec_tail", frame=fi):
+                    with span("t2.fec_tail.bch"):
+                        ok = self.bch_check(bits[:n_bch])
+                        oks.append(ok.sum(dtype=torch.int32))
+                    with span("t2.fec_tail.pack"):
+                        byts = self.bb_pack(bits)        # (kb8, B) int32
+                    with span("t2.fec_tail.hash"):
+                        sums.append(_wrap_i32((byts.long()[None] * wb).sum(
+                            (1, 2))))
+                    if fi in keep:
+                        kept[fi] = byts
+                mark("fec_tail")
+        if sides:
+            for side in sides:
+                caller.wait_stream(side)
+            # the caller's stream reads them: the allocator keeps each
+            # block from its side stream until that read is done
+            for t in (*sums, *oks, *its, *kept.values()):
+                t.record_stream(caller)
+        iters = (torch.full((), self.fixed_iters * self.n_frames,
+                            dtype=torch.int32, device=dev)
+                 if self.fixed_iters else
+                 torch.stack(its).sum(dtype=torch.int32))
         kept_bytes = (torch.stack([kept[fi] for fi in keep]) if keep else
                       torch.zeros((0,) + byts.shape, dtype=torch.int32,
                                   device=dev))
         return torch.stack(sums), torch.stack(oks), iters, kept_bytes
+
+    def _side_streams(self, dev) -> tuple:
+        """The side streams of `dev` where decodes overlap there, else ()
+        (on the CPU, and where the card holds a frame's decode at once)."""
+        sides = self._sides.get(dev)
+        if sides is None:
+            sides = self._sides[dev] = (
+                tuple(torch.cuda.Stream(dev) for _ in range(SIDE_STREAMS))
+                if decodes_overlap(self._code, self.num_blocks, dev)
+                else ())
+        return sides

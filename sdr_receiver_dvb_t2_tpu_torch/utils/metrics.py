@@ -169,8 +169,9 @@ class Tracer:
     name between the two.  An exported trace's event at `ts`
     microseconds, plus the file's `baseTimeNanoseconds`, reads the same
     Unix clock.  A counter adds Python ints on the host and tensors on
-    their own device, without waiting for it; `dump` reads each device
-    total once."""
+    their own device, without waiting for it, into one total per CUDA
+    stream (work on two streams never adds into one tensor); `dump` reads
+    each device total once."""
 
     def __init__(self):
         self.on = False
@@ -203,14 +204,15 @@ class Tracer:
 
     def count(self, name: str, n) -> None:
         """Add `n` (an int, or a one-element integer tensor, summed on its
-        device) to counter `name`."""
+        device and the current stream there) to counter `name`."""
         if isinstance(n, int):
             self._host[name] += n
             return
-        key = (name, n.device)
+        import torch
+        key = (name, n.device, torch.cuda.current_stream(n.device).cuda_stream
+               if n.is_cuda else None)
         total = self._dev.get(key)
         if total is None:
-            import torch
             self._dev[key] = n.reshape(()).to(torch.int64, copy=True)
         else:
             total.add_(n.reshape(()))
@@ -218,7 +220,7 @@ class Tracer:
     def counters(self) -> dict:
         """Every counter's total, as ints (reads each device total)."""
         out = dict(self._host)
-        for (name, _), total in self._dev.items():
+        for (name, *_), total in self._dev.items():
             out[name] = out.get(name, 0) + int(total)
         return out
 

@@ -434,7 +434,8 @@ def _cu_list(macro):
     ("SRC_CARRY_SELF", tl.SRC_CARRY_SELF),
     ("SRC_CARRY_PREV", tl.SRC_CARRY_PREV), ("SRC_LATE", tl.SRC_LATE),
     ("MAX_EDGES", tl.MAX_EDGES), ("PHASE_LO_EDGES", tl.PHASE_LO_EDGES),
-    ("NU", NU), ("SMEM_LIMIT", SMEM_PER_CTA)])
+    ("NU", NU), ("SMEM_LIMIT", SMEM_PER_CTA), ("THREADS", tl.THREADS),
+    ("SMEM_STATIC", tl.SMEM_STATIC)])
 def test_kernel_source_has_the_packers_constants(cu_name, py_value):
     assert _cu_const(cu_name) == py_value
 

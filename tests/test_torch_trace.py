@@ -173,9 +173,10 @@ def test_on_step_spans_nest_with_ids_on_the_trace_clock(cell, tmp_path):
         lead = base + e["ts"] * 1e3 - s["start_ns"]
         assert 0 <= lead < 1e6, (s["name"], lead)
     # the decoder's counters: 3 codewords x 8 sweeps per frame, no vote
-    # before the floor, the first one clean
+    # before the floor, the first one clean; on the CPU no decode overlaps
     assert TRACER.counters() == {"ldpc.codeword_sweeps": NB * 8 * F,
-                                 "ldpc.clean_codeword_sweeps": 0}
+                                 "ldpc.clean_codeword_sweeps": 0,
+                                 "ldpc.overlapped_decodes": 0}
 
 
 def test_acquisition_records_one_span_and_its_rounds(cell):
@@ -258,5 +259,6 @@ def test_step_on_card_never_waits_for_the_device(cell, monkeypatch, on):
     dump = TRACER.dump()
     assert len(dump["spans"]) == (len(STEP_SPANS) if on else 0)
     assert dump["counters"] == ({"ldpc.codeword_sweeps": NB * 8 * F,
-                                 "ldpc.clean_codeword_sweeps": 0}
+                                 "ldpc.clean_codeword_sweeps": 0,
+                                 "ldpc.overlapped_decodes": 0}
                                 if on else {})
