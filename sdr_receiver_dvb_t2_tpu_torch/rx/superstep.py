@@ -73,7 +73,7 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
 class Superstep:
     """fn(raw_r, raw_i (F, n_raw), inv_nvar, track (4,), keep=())
       -> (hashes (F, 2) int32, ok counts (F,) int32, total sweeps () int32,
-          BB bytes (len(keep), kb8, B) int32 of the frames in `keep`).
+          BB bytes (len(keep), kb8, B) uint8, row r frame keep[r]'s).
 
     `track` is the tracking state [cfo_hz, ratio, pos0, phase0] the front
     end corrects with (estimated by the product's acquisition); DC and IQ
@@ -130,6 +130,11 @@ class Superstep:
             return self._step(raw_r, raw_i, inv_nvar, track, keep, mark)
 
     def _step(self, raw_r, raw_i, inv_nvar, track, keep, mark):
+        rows = {}                          # frame -> its rows of `kept`
+        for r, fi in enumerate(keep):
+            if not 0 <= fi < self.n_frames:
+                raise IndexError(f"keep: frame {fi} of {self.n_frames}")
+            rows.setdefault(fi, []).append(r)
         dev = raw_r.device
         n_bch = self.plp.fec.n_bch
         with span("t2.frontend"):
@@ -148,10 +153,16 @@ class Superstep:
         mark("demod_llr")
         sides = self._side_streams(dev)
         count("ldpc.overlapped_decodes", self.n_frames if sides else 0)
+        kb8 = self.plp.fec.k_bch // 8
+        # uint8, not the pack's int32: a quarter of the bytes for the
+        # caller to copy to the host.  Allocated on the caller's stream
+        # before the side streams wait for it, so each may write its rows.
+        kept = torch.empty((len(keep), kb8, self.num_blocks),
+                           dtype=torch.uint8, device=dev)
         caller = torch.cuda.current_stream(dev) if sides else None
         for side in sides:
             side.wait_stream(caller)       # the LLRs, min_it, the weights
-        sums, oks, its, kept = [], [], [], {}
+        sums, oks, its = [], [], []
         for fi in range(self.n_frames):
             with (torch.cuda.stream(sides[fi % len(sides)]) if sides
                   else contextlib.nullcontext()):
@@ -171,24 +182,21 @@ class Superstep:
                     with span("t2.fec_tail.hash"):
                         sums.append(_wrap_i32((byts.long()[None] * wb).sum(
                             (1, 2))))
-                    if fi in keep:
-                        kept[fi] = byts
+                    for r in rows.get(fi, ()):
+                        kept[r].copy_(byts)
                 mark("fec_tail")
         if sides:
             for side in sides:
                 caller.wait_stream(side)
             # the caller's stream reads them: the allocator keeps each
             # block from its side stream until that read is done
-            for t in (*sums, *oks, *its, *kept.values()):
+            for t in (*sums, *oks, *its):
                 t.record_stream(caller)
         iters = (torch.full((), self.fixed_iters * self.n_frames,
                             dtype=torch.int32, device=dev)
                  if self.fixed_iters else
                  torch.stack(its).sum(dtype=torch.int32))
-        kept_bytes = (torch.stack([kept[fi] for fi in keep]) if keep else
-                      torch.zeros((0,) + byts.shape, dtype=torch.int32,
-                                  device=dev))
-        return torch.stack(sums), torch.stack(oks), iters, kept_bytes
+        return torch.stack(sums), torch.stack(oks), iters, kept
 
     def _side_streams(self, dev) -> tuple:
         """The side streams of `dev` where decodes overlap there, else ()

@@ -227,11 +227,12 @@ def estimate_tracking(frames, nvar_rel: float,
 
 
 def reassemble_ts(byts: np.ndarray) -> np.ndarray:
-    """(F, k_bch // 8, B) descrambled BB bytes of consecutive frames ->
-    the reassembled TS bytes."""
+    """(F, k_bch // 8, B) descrambled BB bytes of consecutive frames
+    (the superstep's uint8) -> the reassembled TS bytes."""
     asm = bbframe.TSAssembler()
     for f in range(byts.shape[0]):
-        asm.push_frames(np.ascontiguousarray(byts[f].astype(np.uint8).T))
+        # one copy, the transpose's; a cast only where bytes come wider
+        asm.push_frames(np.ascontiguousarray(byts[f].T, dtype=np.uint8))
     return asm.ts_bytes()
 
 

@@ -6,10 +6,12 @@ of the batch and the card's resident CTAs, never engaged on the CPU; the
 CPU step keeps its one-stream loop and its outputs.  The `cuda`-marked
 test holds the overlapped step at the UK HD mode (202 blocks on 132 SMs)
 to the same frames decoded and tailed one after another on the default
-stream, bit for bit."""
+stream, bit for bit.  The kept bytes are uint8 (the pack's int32 values),
+one row per entry of `keep`, in its order."""
 import dataclasses
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -84,24 +86,28 @@ def _sequential(step, raw, inv, track, keep):
         byts = step.bb_pack(bits)
         sums.append(tss._wrap_i32((byts.long()[None] * wb).sum((1, 2))))
         iters += int(it)
-        if f in keep:
-            kept.append(byts)
-    return torch.stack(sums), oks, iters, torch.stack(kept)
+        kept.append(byts)
+    return (torch.stack(sums), oks, iters,
+            torch.stack(kept)[list(keep)])
 
 
 def _assert_same(got, ref):
+    """The step's outputs equal the frames one after another; its kept
+    bytes are uint8, equal by value to the pack's int32."""
     sums, oks, iters, kept = got
     r_sums, r_oks, r_iters, r_kept = ref
     assert torch.equal(sums.cpu(), r_sums.cpu())
     assert oks.tolist() == r_oks
     assert int(iters) == r_iters
-    assert torch.equal(kept.cpu(), r_kept.cpu())
+    assert r_kept.dtype == torch.int32
+    assert kept.dtype == torch.uint8 and kept.shape == r_kept.shape
+    assert torch.equal(kept.cpu().to(torch.int32), r_kept.cpu())
 
 
-def test_cpu_step_keeps_one_stream_and_its_outputs():
-    """On the CPU the step takes no side stream, its outputs are the
-    frames decoded one after another, and its counter reads 0."""
-    f, nb = 2, 3
+def _small_step(f=2):
+    """An f-frame step of 3 SHORT blocks at 8K on the CPU, its impaired
+    capture and tracking state."""
+    nb = 3
     p = T2Params(fft_mode=FFTMode.FFT_8K, guard=GuardInterval.GI_1_32,
                  pilot_pattern=PilotPattern.PP1, extended_carrier=False,
                  n_data=9)
@@ -115,6 +121,14 @@ def test_cpu_step_keeps_one_stream_and_its_outputs():
                           tss.HALF * (1 + benchgen.SCO), benchgen.PHASE0])
     step = tss.Superstep(p, plp, nb, f, benchgen.FS,
                          tss.hash_weights(plp.fec.k_bch // 8, nb))
+    return step, raw, track
+
+
+def test_cpu_step_keeps_one_stream_and_its_outputs():
+    """On the CPU the step takes no side stream, its outputs are the
+    frames decoded one after another, and its counter reads 0."""
+    step, raw, track = _small_step()
+    f, nb = step.n_frames, step.num_blocks
     inv = torch.tensor(100.0)                     # 20 dB: floor at 8
     TRACER.enable()
     got = step(raw[0], raw[1], inv, track, keep=(0, 1))
@@ -126,6 +140,39 @@ def test_cpu_step_keeps_one_stream_and_its_outputs():
     assert got[1].tolist() == [nb] * f and int(got[2]) == 8 * f
 
 
+@pytest.fixture(scope="module")
+def three_frames():
+    """A 3-frame CPU step at 20 dB, and its frames decoded one after
+    another with every frame's int32 bytes kept."""
+    step, raw, track = _small_step(3)
+    inv = torch.tensor(100.0)
+    return step, raw, track, inv, _sequential(step, raw, inv, track,
+                                              keep=range(3))
+
+
+@pytest.mark.parametrize("keep", [(0, 1, 2), (2, 0), ()],
+                         ids=["all", "subset_out_of_order", "none"])
+def test_kept_bytes_are_uint8_rows_in_keep_order(three_frames, keep):
+    """Row r of the kept bytes is frame keep[r]'s pack, as uint8, and
+    every frame's hash is `expected_hash` of its bytes."""
+    step, raw, track, inv, ref = three_frames
+    got = step(raw[0], raw[1], inv, track, keep=keep)
+    assert got[3].shape == (len(keep), step.plp.fec.k_bch // 8,
+                            step.num_blocks)
+    _assert_same(got, ref[:3] + (ref[3][list(keep)],))
+    weights = tss.hash_weights(step.plp.fec.k_bch // 8, step.num_blocks)
+    for fi in range(step.n_frames):
+        np.testing.assert_array_equal(
+            got[0][fi].numpy(),
+            tss.expected_hash(ref[3][fi].numpy().T, weights))
+
+
+def test_keep_outside_the_frames_raises(three_frames):
+    step, raw, track, inv, _ = three_frames
+    with pytest.raises(IndexError):
+        step(raw[0], raw[1], inv, track, keep=(0, 3))
+
+
 @pytest.mark.cuda
 def test_overlapped_step_equals_frames_one_after_another_on_card():
     """UK HD's code and batch (32K, 256QAM C2/3, 202 blocks) at 19 dB, 4
@@ -134,7 +181,8 @@ def test_overlapped_step_equals_frames_one_after_another_on_card():
     counters of the frames decoded and tailed one after another on the
     default stream.  The frames have 60 data symbols, not UK HD's 59: the
     port's modulator keeps a margin for L1-post that 202 blocks in 59
-    symbols do not leave."""
+    symbols do not leave.  The kept bytes are uint8 rows in `keep`'s
+    order, a strict subset's too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from sdr_receiver_dvb_t2_tpu_torch import bench as tb
@@ -163,6 +211,9 @@ def test_overlapped_step_equals_frames_one_after_another_on_card():
     seq = TRACER.dump(clear=True)["counters"]
     TRACER.disable()
     _assert_same(got, ref)
+    # side streams write a strict subset's rows out of frame order
+    _assert_same(step(raw[0], raw[1], inv, b.track, keep=(3, 1)),
+                 ref[:3] + (ref[3][[3, 1]],))
     assert got[1].tolist() == [202] * f
     assert int(got[2]) > tss.FLOOR_SWEEPS * f           # past the floor
     assert torch.equal(got[0].cpu(), torch.from_numpy(b.expect))
