@@ -29,7 +29,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        frames against its plain version within `fft_stage1.compare`'s
        tolerance, stage 1 by K6 plus the stage-2 product against
        torch.fft.fft, and K6's time at F=32 and F=128 beside its bound
-       and the same function through bf16 torch.matmul.
+       and the same function through bf16 torch.matmul;
+       K7 (the max-log LLR tail) at the benchmark cells' shape, the UK HD
+       mode's 202 blocks and F=64 frames in bf16, against its plain
+       version, tolerance 0 (NaN equal to NaN), with and without the EVM
+       planes, timed beside its bound and the plain version.
      Then the layered kernel body on every code `qc_tables` knows (13) at
      B=8 (`tools/ldpc_layer_bench.check_all_codes`): 3 fixed sweeps in
      natural order through K3's and K4's doors, the adaptive exit in
@@ -130,6 +134,7 @@ NUM_BLOCKS = 128
 PALLAS = "sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py"
 SOURCE = "sdr_receiver_dvb_t2_tpu_torch/csrc/ldpc_layered.cu"
 SOURCE_K6 = "sdr_receiver_dvb_t2_tpu_torch/csrc/fft_stage1.cu"
+SOURCE_K7 = "sdr_receiver_dvb_t2_tpu_torch/csrc/llr_tail.cu"
 # published peaks of one H100 SXM, for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -141,6 +146,8 @@ BF16_TENSOR_FLOPS = 989e12
 OPS_PER_EDGE_SWEEP = 15
 OPS_PER_EDGE_CHECK = 2
 FFT_FRAMES = 32            # frames of the K6 check and the FFT microbench
+K7_BLOCKS = 202            # K7's check at the benchmark cells' shape:
+K7_FRAMES = 64             # the UK HD mode's blocks, F frames per step
 STREAM_FRAMES = 4          # frames of the vendor-rate streaming captures
 BENCH_FRAMES = 128         # frames per superstep of the bench phase
 STREAM_TAIL = 4096         # samples of the next frame played after the last
@@ -162,7 +169,7 @@ def log(msg):
 
 
 def kernel_wrappers():
-    """{name: the launch-counting wrapper} of K1-K6 (the package's table)."""
+    """{name: the launch-counting wrapper} of K1-K7 (the package's table)."""
     from sdr_receiver_dvb_t2_tpu_torch.ops import kernel_wrappers as table
     return table()
 
@@ -193,7 +200,7 @@ def phase_build():
     t0 = time.time()
     _build.build_all()
     log(f"[build] csrc/*.cu in parallel in {time.time() - t0:.2f} s")
-    for name in ("ldpc_layered", "fft_stage1"):
+    for name in ("ldpc_layered", "fft_stage1", "llr_tail"):
         _build.load(name)
         lines = _build.build_log(name).splitlines()
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
@@ -434,6 +441,61 @@ def phase_k6(frames):
     return record
 
 
+def k7_bound(cells, f, bits, elem):
+    """K7's least time: the paired cells (2 values) read once and the LLRs
+    (`bits` values) written once per cell and frame, over the memory rate.
+    -> (ms, bytes)."""
+    byts = cells * f * elem * (2 + bits)
+    return 1e3 * byts / HBM_BYTES_PER_S, byts
+
+
+def phase_k7():
+    """K7 at the benchmark cells' shape (`K7_BLOCKS`, `K7_FRAMES`, bf16) on
+    random unit-power cells against its plain version, tolerance 0 (NaN
+    equal to NaN), with and without the EVM planes; the kernel's time and
+    the plain version's beside the bound.  -> the kernel's record."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import llr_tail
+    from sdr_receiver_dvb_t2_tpu_torch.rx import fusedpath
+    from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
+    from sdr_receiver_dvb_t2_tpu_torch.tools.timing import differing
+    from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen as bg
+    p, plp = bg.headline_mode(K7_BLOCKS)
+    path = fusedpath.get_fused_plp_path(p, plp, K7_BLOCKS)
+    tail = llr_tail.LLRTail(path, K7_FRAMES, torch.bfloat16)
+    total = fusedpath.get_fused_demod(p).total_cells
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    both = (0.8 * torch.randn((total, 2 * K7_FRAMES), generator=gen,
+                              device="cuda")).to(torch.bfloat16)
+    inv = torch.tensor(100.0, device="cuda")
+    n_diff, err = 0, 0.0
+    for evm in (True, False):
+        got, got_evm = tail.kernel(both, inv, evm)
+        want, want_evm = tail.plain(both, inv)
+        n_diff += differing(got, want)
+        if evm:
+            n_diff += differing(got_evm, want_evm)
+        g, w = got.float(), want.float()
+        same = (g == w) | (g.isnan() & w.isnan())
+        err = max(err, float(torch.where(same, 0.0, (g - w).abs()).max()))
+        del got, want, g, w, same
+    k_ms = mb.cuda_ms(lambda: tail.kernel(both, inv, False), 10)
+    e_ms = mb.cuda_ms(lambda: tail.kernel(both, inv, True), 10)
+    p_ms = mb.cuda_ms(lambda: tail.plain(both, inv), 2)
+    n_points = tail.nb * tail.cpf
+    bound, byts = k7_bound(n_points, K7_FRAMES, plp.bits_per_cell, 2)
+    log(f"[K7 vs plain] {tail.cpf} cells x {tail.nb} blocks x {K7_FRAMES} "
+        f"frames, 256QAM rotated, bf16: {n_diff} values differ, max |diff| "
+        f"{err} (tolerance 0)")
+    log(f"[K7 timing] kernel {k_ms:.3f} ms = {k_ms / K7_FRAMES:.4f} "
+        f"ms/frame ({e_ms:.3f} ms with the EVM planes), plain version "
+        f"{p_ms:.3f} ms, bound {bound:.3f} ms (bytes; {byts / 1e9:.3f} GB), "
+        f"{100 * bound / k_ms:.0f}% of the bound's rate")
+    if n_diff or err:
+        raise RuntimeError("K7 disagrees with its plain version")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
 def phase_kernels():
     from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import CodeRate
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as ll
@@ -451,6 +513,7 @@ def phase_kernels():
         "K4": phase_fixed("K4", CodeRate.C3_5, "hbm", 0.82, 8),
         "K5": phase_fixed("K5", CodeRate.C2_3, "fused_io", 0.74, 9),
         "K6": phase_k6((FFT_FRAMES, 4 * FFT_FRAMES)),
+        "K7": phase_k7(),
     }
 
 
@@ -1227,12 +1290,15 @@ def main():
     names = {"K1": "ldpc_layered_vmem_adaptive_io",
              "K2": "ldpc_layered_vmem_adaptive",
              "K3": "ldpc_layered_vmem", "K4": "ldpc_layered_hbm",
-             "K5": "ldpc_layered_fused_io", "K6": "fft_stage1"}
+             "K5": "ldpc_layered_fused_io", "K6": "fft_stage1",
+             "K7": "llr_tail"}
     replaces = {"K1": f"{PALLAS}:819", "K2": f"{PALLAS}:665",
                 "K3": f"{PALLAS}:1020", "K4": f"{PALLAS}:227",
-                "K5": f"{PALLAS}:1137", "K6": "tools/fft_microbench.py:147"}
+                "K5": f"{PALLAS}:1137", "K6": "tools/fft_microbench.py:147",
+                "K7": "none (XLA fused the JAX package's LLR tail)"}
+    sources = {"K6": SOURCE_K6, "K7": SOURCE_K7}
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         rec = dict(checks[k])
         n = (launches[k] + rx_launches[k] + fe_launches[k]
              + bench_launches[k] + cli_launches[k] + ber_launches[k]
@@ -1243,7 +1309,7 @@ def main():
             rec["max_abs_err"] = max(rec["max_abs_err"], err_slice)
         kernels.append({
             "name": f"{k} {names[k]}", "route": "cuda",
-            "source": SOURCE_K6 if k == "K6" else SOURCE,
+            "source": sources.get(k, SOURCE),
             "replaces": replaces[k], "launches": n, **rec})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

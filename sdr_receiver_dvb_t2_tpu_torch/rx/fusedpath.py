@@ -14,8 +14,8 @@ layout.  Port of `sdr_receiver_dvb_t2_tpu/rx/fusedpath.py`:
     the class-ordered `syms` entry (the comp-first SISO equalizer with the
     fftshift folded into the row tables), the `planes` and `__call__`
     entries on (F, len_frame*symbol_size) bodies, the paired (total, 2F)
-    cell layout, one LLR tail per PLP, the L1 cells and the cell-weighted
-    EVM.
+    cell layout, one LLR tail per PLP (`ops/llr_tail.LLRTail`: K7 on the
+    card), the L1 cells and the cell-weighted EVM.
 
 The FFT is `torch.fft` (cuFFT on the card) in f32, cast to the demod dtype.
 The table builds are the port's copies of `FusedFrameDemod.__init__`,
@@ -37,6 +37,8 @@ from ..rx.decode import _ti_inverse_perm
 from ..tx.frame import ti_blocks_split
 
 from .._device import DeviceConst
+from ..ops.llr_tail import LLRTail
+from ..utils.metrics import count
 
 
 def _interp_stencil(pilot_pos: np.ndarray, k_total: int):
@@ -506,72 +508,6 @@ def fft_carrier_major(sym_r, sym_i, dtype):
     return spec.real.to(dtype), spec.imag.to(dtype)
 
 
-class _Tail:
-    """One PLP's LLR tail (JAX `MultiFramePath._make_tail`): class-flat
-    paired rows (total, 2F) -> (n_ldpc, nb, F) LLRs + the per-frame mean
-    min distance (EVM)."""
-
-    def __init__(self, path: FusedPLPPath, n_frames: int, llr_dtype):
-        plp = path.plp
-        self.plp, self.f, self.llr_dtype = plp, n_frames, llr_dtype
-        self.nb, self.cpf = path.num_blocks, plp.cells_per_fec_block
-        m = plp.bits_per_cell
-        half = m // 2
-        # cell-major composed PLP permutation: (nb, F) stay minor
-        self._comp_cm = DeviceConst(
-            path.comp.reshape(self.nb, self.cpf).T.reshape(-1).astype(
-                np.int64))
-        # bit deinterleave remapped to plane-major LLR storage: v-flat
-        # index cell*m + bitpos (y0=I0, y1=Q0, ...) -> plane*cpf + cell
-        bi = path.bit_inv.astype(np.int64)
-        cell_ix, bitpos = bi // m, bi % m
-        plane = (bitpos % 2) * half + bitpos // 2
-        self._bit_inv_pm = DeviceConst(plane * self.cpf + cell_ix)
-        self._levels = [float(v) for v in (tables._gray_levels(m)
-                        * tables.NORM_FACTOR[plp.constellation])]
-        words = np.arange(len(self._levels))
-        self._axis_masks = np.stack(
-            [(words >> (half - 1 - b)) & 1 for b in range(half)]
-        ).astype(bool)
-        # python floats keep bf16 arithmetic in bf16
-        self._rot = (float(np.real(path.rot)), float(np.imag(path.rot)))
-
-    def _axis_llrs(self, xax, inv_t):
-        """Max-log LLRs of one axis by an explicit level loop (no
-        (levels, ...) distance tensor), min distances kept in llr_dtype."""
-        half = self._axis_masks.shape[0]
-        acc0 = [None] * half
-        acc1 = [None] * half
-        for lvl_i, lvl in enumerate(self._levels):
-            d = ((xax - lvl) ** 2).to(self.llr_dtype)
-            for b in range(half):
-                acc = acc1 if self._axis_masks[b][lvl_i] else acc0
-                acc[b] = d if acc[b] is None else torch.minimum(acc[b], d)
-        llrs = torch.stack([(acc1[b] - acc0[b]) * inv_t
-                            for b in range(half)])
-        # bit 0 partitions all levels: its two minima hold the per-axis
-        # unconditional min distance (the EVM)
-        return llrs, torch.minimum(acc0[0], acc1[0])
-
-    def __call__(self, both, inv_nvar):
-        nb, cpf, f = self.nb, self.cpf, self.f
-        dev = both.device
-        g = both[self._comp_cm.on(dev)].reshape(cpf, nb, 2, f)
-        re, im = g[:, :, 0, :], g[:, :, 1, :]
-        if self.plp.rotated:
-            rot_re, rot_im = self._rot
-            im = torch.roll(im, -1, 0)              # cyclic Q-delay per block
-            re, im = (re * rot_re - im * rot_im, re * rot_im + im * rot_re)
-        inv_t = torch.as_tensor(inv_nvar, dtype=torch.float32,
-                                device=dev).to(self.llr_dtype)
-        li, mi_ = self._axis_llrs(re, inv_t)        # (half, cpf, nb, F)
-        lq, mq_ = self._axis_llrs(im, inv_t)
-        v = torch.cat([li, lq]).reshape(self.plp.bits_per_cell * cpf, nb, f)
-        out = v[self._bit_inv_pm.on(dev)]           # (n_ldpc, nb, F)
-        evm = (mi_.float().mean((0, 1)) + mq_.float().mean((0, 1)))
-        return out, evm
-
-
 class MultiFramePath:
     """F-frame batched demod + PLP LLR path with the frame axis minor in
     every array.
@@ -583,7 +519,8 @@ class MultiFramePath:
         body planes in natural symbol order;
       - `path(bodies, inv_nvar)`: (F, len_frame*symbol_size, 2) bodies.
     Each returns (n_ldpc, nb, F) LLRs in `llr_dtype` (a tuple of them, one
-    per PLP, with `plp_specs`), followed, when asked, by the L1 cells
+    per PLP, with `plp_specs`; on the card views of frame-major (F, n_ldpc,
+    nb) storage, contiguous on the CPU), followed, when asked, by the L1 cells
     (l1_size, F, 2) (`emit_l1`) and the cell-weighted (F,) EVM
     (`emit_evm`).  `plp_specs` = [(plp, num_blocks, start_cell,
     sub_slices, slice_interval), ...] decodes every PLP of the frames in
@@ -624,7 +561,8 @@ class MultiFramePath:
                     l1_cells=self.l1_size, sub_slices=ss,
                     slice_interval=iv))
         self.path = self.paths[0]
-        self._tails = [_Tail(pa, n_frames, llr_dtype) for pa in self.paths]
+        self._tails = [LLRTail(pa, n_frames, llr_dtype)
+                       for pa in self.paths]
         # cell-count weights for the cross-PLP EVM average
         wts = np.array([pa.num_blocks * pa.plp.cells_per_fec_block
                         for pa in self.paths], np.float64)
@@ -708,13 +646,18 @@ class MultiFramePath:
 
     def tails(self, both, inv_nvar):
         """-> ([(n_ldpc, nb, F) LLRs per PLP], the cell-weighted (F,)
-        EVM) of the paired layout."""
+        EVM, or None without `emit_evm`) of the paired layout.  On the
+        card each tail is one launch of K7 (`ops/llr_tail.py`), whose LLRs
+        are views of frame-major (F, n_ldpc, nb) storage; the counter
+        "demod.llr_kernel_frames" adds the frames it ran (0 on the CPU)."""
         outs, evm = [], 0.0
         for w, tail in zip(self._wts, self._tails):
-            out_p, evm_p = tail(both, inv_nvar)
+            out_p, evm_p = tail(both, inv_nvar, evm=self.emit_evm)
             outs.append(out_p)
-            evm = evm + evm_p * w
-        return outs, evm
+            if self.emit_evm:
+                evm = evm + evm_p * w
+        count("demod.llr_kernel_frames", self.n_frames if both.is_cuda else 0)
+        return outs, (evm if self.emit_evm else None)
 
     def carriers(self, xkr, xki, ordered: bool):
         """The (fft, n_sym, F) FFT output -> (xr, xi, wrapped): on the

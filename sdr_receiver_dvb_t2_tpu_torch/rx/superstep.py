@@ -143,9 +143,10 @@ class Superstep:
         mark("frontend")
         with span("t2.demod_llr"):
             inv = torch.as_tensor(inv_nvar, dtype=torch.float32, device=dev)
-            # one frame-major copy (F, N, B): each decode then reads a
-            # contiguous (N, B) block instead of a stride-F gather of its
-            # own
+            # frame-major (F, N, B): each decode then reads a contiguous
+            # (N, B) block instead of a stride-F gather of its own.  On the
+            # card K7 writes the LLRs in this layout, so nothing is copied;
+            # on the CPU this is one copy
             llrs = self.mf.syms(sr, si, inv).permute(2, 0, 1).contiguous()
             min_it = torch.where(inv >= FLOOR_INV_NVAR, 0, FLOOR_SWEEPS).to(
                 torch.int32)

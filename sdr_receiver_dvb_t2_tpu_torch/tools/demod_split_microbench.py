@@ -17,8 +17,10 @@ events); consecutive differences give each stage's cost:
   eq     : + pilot estimate, smoother, interpolation, one-tap EQ, paired
            (total, 2F) layout (`equalize`, over `_eq_class_comp`)
   gather : + the PLP composed cell gather (the tail's `_comp_cm`)
-  llr    : + rotation, max-log LLRs, bit deinterleave (`tails`, `_Tail`):
-           the path's output, held equal to `MultiFramePath.syms`
+  llr    : eq + the LLR tail (`tails`: the gather, rotation, max-log
+           LLRs, bit deinterleave; on the card one launch of K7, which
+           gathers for itself, so the tail's cost is llr - eq): the path's
+           output, held equal to `MultiFramePath.syms`
 
 Two FFT heads: "cufft" (`fusedpath.fft_carrier_major`, the receive path's
 own) and "k6" (the matmul FFT: stage 1 by the K6 kernel,

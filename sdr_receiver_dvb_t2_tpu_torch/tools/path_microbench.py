@@ -15,8 +15,10 @@ the difference between consecutive prefixes is the added stage's cost:
   demod  : fft + per-class pilot equalize (`class_views`, `equalize` over
            `_eq_class_planar`) into the paired (total, 2F) layout
   cells  : + the PLP composed cell gather
-  llrs   : + rotation, max-log LLRs, bit deinterleave (`tails`): the path's
-           output, held equal to `MultiFramePath(bodies, inv_nvar)`
+  llrs   : demod + the LLR tail (`tails`: the gather, rotation, max-log
+           LLRs, bit deinterleave; on the card K7, which gathers for
+           itself, so the tail's cost is llrs - demod): the path's output,
+           held equal to `MultiFramePath(bodies, inv_nvar)`
 
 and beside them `mxu`: the same carriers through the matmul FFT (K6 stage
 1, `ops/fft_stage1.Stage1`, then `mxu_fft.stage2_carrier_major`), bf16.
