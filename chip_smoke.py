@@ -49,11 +49,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   3. the superstep: F frames modulated on the host (T2Modulator), impaired
      on the card (CFO +1.2 kHz, SCO +22 ppm, DC, IQ imbalance, int16 ADC),
      tracking state estimated by T2Receiver.refine_acquire on a 2-frame
-     capture, then the superstep at clean and at 20 dB.  Gates: every
-     codeword BCH-clean, per-frame hashes equal to the host expectation,
-     the TS reassembled from all frames bit-exact, K1 launched.  Each
-     point also prints the step's device time by stage (`bench.stage_split`:
-     CUDA events at the stage marks of `Superstep.__call__`).  Then K5's
+     capture, then the superstep at clean, at 20 dB and at 19 dB with a
+     static 0.15@32 echo.  Gates at every point: every codeword
+     BCH-clean, per-frame hashes equal to the host expectation, the TS
+     reassembled from all frames bit-exact, K1 launched.  Then K5's
      path, its front door on the superstep's own frame-0 LLRs (every
      codeword BCH-clean, the BB bytes equal to the transmitted ones), and
      K6's path, the FFT microbench tool (`tools/fft_microbench.run`: every
@@ -72,24 +71,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      `DeviceFrontendChain` with its state on the CUDA device, every frame
      decoded (all but at most the last at 10 Msps, whose tail the
      polyphase halo holds back), no TS errors, the TS bit-exact.
-  6. the port's bench (`bench.run`): F=128 distinct frames synthesised
-     on the card (`utils/benchgen.make_frame_synth`), impaired there,
-     tracking state estimated by the product's acquisition, then the
-     chained superstep at clean, 19 dB, 20 dB and 19 dB with a 0.15@32
-     echo.  Gates at every point: all 128 per-frame hashes, every codeword
-     BCH-clean, the rotating frame's TS bit-exact, K1 launched.  Prints
-     each point's median of 3 chains with its spread, the peak device
-     memory, the device's busy share over one clean step and the bench's
-     record.
-  7. the receiver CLI (`rx.cli`, as a user runs it): `tx.cli` writes a
-     4-frame capture at the bench's mode; `--flood-ldpc` one-shot on its
+  6. the receiver CLI (`rx.cli`, as a user runs it): `tx.cli` writes a
+     4-frame capture at the headline mode; `--flood-ldpc` one-shot on its
      first frame (the host receiver and the f32 flooding decoder on the
      card) and `--stream --device-path` on all of it (K2).  Gates: every
      frame decoded, each TS bit-exact, K2 launched.
-  8. the entry hooks and the data-parallel step: `entry()` ((8, 64800)
+  7. the entry hooks and the data-parallel step: `entry()` ((8, 64800)
      bits, ms per call), `dryrun_multichip(1)` (a spawned NCCL rank: tiny
      mode and flagship shape), and `sharded_fused_step` in a world-1 NCCL
-     group at the bench's mode with the front end on, 8 frames impaired by
+     group at the headline mode with the front end on, 8 frames impaired by
      SCO 2e-5.  Gates: every codeword equal to the transmitted one, the
      stats all-reduce equal to the transmitted ones and codewords, the
      bits equal to the same modules with no process group, the flooding
@@ -98,10 +88,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      world-1 NCCL group on 2 of those frames, un-impaired, 2 f32 flooding
      iterations: its bits equal to the same step on the CPU and to the
      transmitted codewords.
-  9. the BER tool (`tools/ber_validation`) at NORMAL C2/3, B=128: K3, the
+  8. the BER tool (`tools/ber_validation`) at NORMAL C2/3, B=128: K3, the
      bf16 flooding decoder, K1 on the reversed layers.  Gate: each layered
      column within 10% of flooding wherever that is at least 1e-3.
-  10. two-process streaming (`tools/concurrent_stream_bench`, ranks of a
+  9. two-process streaming (`tools/concurrent_stream_bench`, ranks of a
      gloo group sharing cuda:0, each with DeviceT2Receiver: K2) at the
      headline mode: the handoff (8 frames, rank 0 streams 4 blocks and
      broadcasts its checkpoint, rank 1 resumes) and the concurrent slices
@@ -109,7 +99,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      Gates: the TS bit-exact against one process on the same capture, no
      TS errors, K2 launched in each rank; concurrent: both ranks' CFO
      history equal, and moving.  Prints the per-round walltimes.
-  11. the microbenches at the headline mode: `demod_split_microbench` at
+  10. the microbenches at the headline mode: `demod_split_microbench` at
      F=128 with the cuFFT and the K6 head (gate: the llr prefix equals
      `MultiFramePath.syms`), `path_microbench` (F=8) and
      `demod_microbench` (F=32), `fec_tail_microbench` (gates: every
@@ -117,13 +107,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      `ldpc_microbench` (K3 against K4; gate: both decode exactly),
      `hbm_vmem_equivalence` (gate: K4 equal to the f32 layered reference,
      errors corrected) and one row (19 dB) of `ldpc_iters_sweep`.
-  12. no jax module and no module of the JAX package is loaded.
+  11. no jax module and no module of the JAX package is loaded.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 
@@ -149,7 +140,6 @@ FFT_FRAMES = 32            # frames of the K6 check and the FFT microbench
 K7_BLOCKS = 202            # K7's check at the benchmark cells' shape:
 K7_FRAMES = 64             # the UK HD mode's blocks, F frames per step
 STREAM_FRAMES = 4          # frames of the vendor-rate streaming captures
-BENCH_FRAMES = 128         # frames per superstep of the bench phase
 STREAM_TAIL = 4096         # samples of the next frame played after the last
 CLI_FRAMES = 4             # frames of the capture the CLI phase writes
 SHARD_FRAMES = 8           # frames of the sharded step at the flagship shape
@@ -192,8 +182,10 @@ def ldpc_bound(code, batch, in_bytes, sweeps, checks=0):
 
 
 def phase_build():
-    from sdr_receiver_dvb_t2_tpu_torch import bench
-    log(bench.card_line())
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    log(out.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     from sdr_receiver_dvb_t2_tpu_torch import _build
@@ -518,7 +510,6 @@ def phase_kernels():
 
 
 def phase_slice(n_frames):
-    from sdr_receiver_dvb_t2_tpu_torch import bench
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered
     from sdr_receiver_dvb_t2_tpu_torch.rx import superstep as ss_mod
     from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
@@ -545,20 +536,23 @@ def phase_slice(n_frames):
     expect = np.stack([ss_mod.expected_hash(rows[f], weights)
                        for f in range(n_frames)])
     step = ss_mod.Superstep(p, plp, NUM_BLOCKS, n_frames, bg.FS, weights)
-    points = (("clean", 0.0, 10 ** 3.3), ("20 dB", 10 ** -2.0, 100.0))
-    raws = {lab: bg.impaired(frames, nv, gen, "cuda")
-            for lab, nv, _ in points}
+    # (label, AWGN relative to the signal, inv_nvar, static echo)
+    points = (("clean", 0.0, 10 ** 3.3, (0.0, 0)),
+              ("20 dB", 10 ** -2.0, 100.0, (0.0, 0)),
+              ("19 dB echo 0.15@32", 10 ** -1.9, 10 ** 1.9, (0.15, 32)))
+    raws = {lab: bg.impaired(frames, nv, gen, "cuda", echo=echo)
+            for lab, nv, _, echo in points}
     keep = tuple(range(n_frames))
 
     counts = _zero_counts()
     results = {lab: step(*raws[lab], inv, track, keep=keep)
-               for lab, _, inv in points}
+               for lab, _, inv, _ in points}
     torch.cuda.synchronize()
     launches = _read_counts(counts)
     if launches["K1"] == 0:
         raise RuntimeError("the superstep never launched K1")
 
-    for lab, _, inv in points:
+    for lab, _, inv, _ in points:
         sums, oks, iters, byts = (r.cpu().numpy() for r in results[lab])
         got = bg.reassemble_ts(byts)
         ts_ok = (len(got) >= (n_frames - 1) * len(ts) // n_frames
@@ -573,9 +567,6 @@ def phase_slice(n_frames):
             f"{dt:.2f} ms = {dt / n_frames:.3f} ms/frame")
         if not (bch_ok and hash_ok and ts_ok):
             raise RuntimeError(f"slice gate failed at {lab}")
-        split = bench.stage_split(step, raws[lab], inv, track)
-        log(f"[slice {lab}] device ms per superstep by stage: "
-            + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
 
     # the kernel on the main path's own LLRs (frame 0, 20 dB)
     (sr, si), _, _ = step.frontend(*raws["20 dB"], track[0], track[1],
@@ -608,47 +599,6 @@ def phase_slice(n_frames):
     if ok5 != NUM_BLOCKS or not same5 or err5 != 0 or launches["K5"] == 0:
         raise RuntimeError("K5 path gate failed")
     return launches, max(err, err5)
-
-
-def phase_bench(n_frames):
-    """The port's bench (`python -m sdr_receiver_dvb_t2_tpu_torch.bench`)
-    through `bench.run` at the headline mode: n_frames distinct frames
-    synthesised on the card, the chained superstep at clean, 19 dB, 20 dB
-    and 19 dB with the 0.15@32 echo, each gated (every frame's hash, every
-    codeword BCH-clean, the rotating frame's TS bit-exact) and timed as a
-    median of 3 chains.  -> (launch counts of the run, its record)."""
-    from sdr_receiver_dvb_t2_tpu_torch import bench
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    counts = _zero_counts()
-    rec = bench.run(frames=n_frames, snr=19.0, multipath=(0.15, 32),
-                    device="cuda", log=lambda msg: log(f"[bench] {msg}"))
-    torch.cuda.synchronize()
-    launches = _read_counts(counts)
-    busy = rec["busy_clean"]
-    for label, pt in rec["points"].items():
-        log(f"[bench {label}] F={n_frames}: {pt['ms_per_frame']:.3f} "
-            f"ms/frame (median of 3, spread {pt['spread_pct']:.1f}%), "
-            f"{pt['msamples_per_s']:.2f} Msamples/s = "
-            f"{pt['x_real_time']:.2f}x real time, LDPC "
-            f"{pt['sweeps_per_frame']:.2f} sweeps/frame; hashes "
-            f"{'ok' if pt['hashes_ok'] else 'FAIL'}, BCH clean "
-            f"{pt['bch_clean_min']}/{NUM_BLOCKS} at least, TS bit-exact "
-            f"{pt['ts_ok']}")
-    log(f"[bench] F={n_frames}: peak device memory "
-        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB; one clean step "
-        f"{busy['device_ms_per_step']:.2f} ms of device time in "
-        f"{busy['profiled_step_ms']:.2f} ms ({100 * busy['busy_share']:.1f}%"
-        f" busy), host waits for the device in a step: "
-        f"{busy['host_sync'] or 'none'}; launches {launches}; "
-        f"{time.time() - t0:.1f} s")
-    failed = [k for k, v in rec["points"].items() if not v["ok"]]
-    if failed:
-        raise RuntimeError(f"bench gates failed at {failed}")
-    if launches["K1"] == 0:
-        raise RuntimeError("the bench never launched K1")
-    log(json.dumps({"bench": rec}))
-    return launches, rec
 
 
 def phase_fft_tool(f):
@@ -872,7 +822,7 @@ def phase_stream_frontend(p, plp, device, seed=21):
 
 def phase_cli(p, plp, seed=31):
     """The receiver CLI as a user runs it: the port's `tx.cli` writes a
-    CLI_FRAMES-frame capture at the bench's mode, then `rx.cli` decodes it
+    CLI_FRAMES-frame capture at the headline mode, then `rx.cli` decodes it
     one-shot with `--flood-ldpc` (the host receiver with the f32 flooding
     decoder on the card; its first frame only, the host NumPy 256QAM
     demapper taking tens of seconds per frame) and with `--stream
@@ -940,7 +890,7 @@ def phase_sharded(p, plp, seed=41):
     """The entry hooks and the data-parallel step: `entry()` on the card
     ((8, 64800) bits, ms per call); `dryrun_multichip(1)` (one NCCL rank
     in a spawned process: the tiny mode, then the flagship shape); then
-    `sharded_fused_step` in a world-1 NCCL group at the bench's mode with
+    `sharded_fused_step` in a world-1 NCCL group at the headline mode with
     the front end on, SHARD_FRAMES host-modulated frames impaired by SCO
     2e-5 alone (the step's fixed front-end arguments), 4 f32 flooding
     iterations.  Gates: every codeword equal to the transmitted one, stats
@@ -1280,7 +1230,6 @@ def main():
         p, plp, dataclasses.replace(plp, rate=CodeRate.C3_5),
         args.rx_frames, "cuda")
     fe_launches = phase_stream_frontend(p, plp, "cuda")
-    bench_launches, _ = phase_bench(BENCH_FRAMES)
     cli_launches = phase_cli(p, plp)
     phase_sharded(p, plp)
     ber_launches = phase_ber()
@@ -1301,8 +1250,8 @@ def main():
     for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         rec = dict(checks[k])
         n = (launches[k] + rx_launches[k] + fe_launches[k]
-             + bench_launches[k] + cli_launches[k] + ber_launches[k]
-             + dist_launches[k] + tool_launches[k])
+             + cli_launches[k] + ber_launches[k] + dist_launches[k]
+             + tool_launches[k])
         if n == 0:
             raise RuntimeError(f"{k} was never launched on a main path")
         if k in ("K1", "K5"):

@@ -31,8 +31,7 @@ from .._device import DeviceConst
 from ..ops import fec_device
 from ..ops import frontend_device as fdev
 from ..ops.ldpc_layered import (decodes_overlap,
-                                make_adaptive_decoder_nb_fused_io,
-                                make_decoder_nb)
+                                make_adaptive_decoder_nb_fused_io)
 from ..utils.metrics import count, span
 from .fusedpath import MultiFramePath
 
@@ -40,7 +39,7 @@ from .fusedpath import MultiFramePath
 # first syndrome check moves to sweep 8
 FLOOR_INV_NVAR = 316.0
 FLOOR_SWEEPS = 8
-# the bench's decoder: up to 24 sweeps, syndrome after every sweep,
+# the JAX bench's decoder: up to 24 sweeps, syndrome after every sweep,
 # reversed layer order
 MAX_SWEEPS = 24
 HALF = 8          # Farrow resampler half-width (17 taps)
@@ -90,15 +89,10 @@ class Superstep:
     "t2.fec_tail.bch", ".pack" and ".hash"; the decoder adds the LDPC
     counters (`ops/ldpc_layered.lockstep_counts`) and the step the
     counter "ldpc.overlapped_decodes": its frames decoded on side streams
-    (F where decodes overlap, else 0).
-
-    `fixed_iters` > 0 swaps the adaptive decoder (K1) for `fixed_iters`
-    sweeps of the fixed one (`make_decoder_nb`: K3 at C2/3), which ignores
-    the floor; the sweep count is then `fixed_iters` per frame."""
+    (F where decodes overlap, else 0)."""
 
     def __init__(self, p: T2Params, plp: PLPParams, num_blocks: int,
-                 n_frames: int, fs: float, weights: np.ndarray,
-                 fixed_iters: int = 0):
+                 n_frames: int, fs: float, weights: np.ndarray):
         self.p, self.plp = p, plp
         self.num_blocks, self.n_frames = num_blocks, n_frames
         self.mf = MultiFramePath(p, plp, num_blocks, n_frames,
@@ -106,14 +100,9 @@ class Superstep:
         self.frontend = fdev.make_frontend_symbols(
             p.len_frame, p.symbol_size, p.guard_size, fs, half=HALF,
             sym_order=self.mf.demod.sym_order, out_dtype=torch.bfloat16)
-        self.fixed_iters = fixed_iters
-        if fixed_iters:
-            self.decode = make_decoder_nb(plp.fec_frame, plp.rate,
-                                          iters=fixed_iters, batch=num_blocks)
-        else:
-            self.decode = make_adaptive_decoder_nb_fused_io(
-                plp.fec_frame, plp.rate, max_iters=MAX_SWEEPS,
-                check_every=1, batch=num_blocks, layer_order="reversed")
+        self.decode = make_adaptive_decoder_nb_fused_io(
+            plp.fec_frame, plp.rate, max_iters=MAX_SWEEPS, check_every=1,
+            batch=num_blocks, layer_order="reversed")
         self.bch_check = fec_device.make_bch_check_nb(plp.fec_frame,
                                                       plp.rate)
         self.bb_pack = fec_device.make_bb_bytes_nb(plp.fec_frame, plp.rate)
@@ -168,11 +157,8 @@ class Superstep:
             with (torch.cuda.stream(sides[fi % len(sides)]) if sides
                   else contextlib.nullcontext()):
                 with span("t2.ldpc", frame=fi):
-                    if self.fixed_iters:
-                        bits = self.decode(llrs[fi])
-                    else:
-                        bits, it = self.decode(llrs[fi], min_it)
-                        its.append(it)
+                    bits, it = self.decode(llrs[fi], min_it)
+                    its.append(it)
                 mark("ldpc")
                 with span("t2.fec_tail", frame=fi):
                     with span("t2.fec_tail.bch"):
@@ -193,11 +179,8 @@ class Superstep:
             # block from its side stream until that read is done
             for t in (*sums, *oks, *its):
                 t.record_stream(caller)
-        iters = (torch.full((), self.fixed_iters * self.n_frames,
-                            dtype=torch.int32, device=dev)
-                 if self.fixed_iters else
-                 torch.stack(its).sum(dtype=torch.int32))
-        return torch.stack(sums), torch.stack(oks), iters, kept
+        return (torch.stack(sums), torch.stack(oks),
+                torch.stack(its).sum(dtype=torch.int32), kept)
 
     def _side_streams(self, dev) -> tuple:
         """The side streams of `dev` where decodes overlap there, else ()

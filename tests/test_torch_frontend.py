@@ -119,6 +119,14 @@ def test_impairer_noise_power():
     assert 0.008 < float((d ** 2).sum(-1).mean()) < 0.012
 
 
+def test_frontend_raw_len_equals_jax():
+    for n_samp in (94976, 2048 + 60 * 33024, 1, 12345):
+        for sco in (0.0, 2e-5, 2.2e-5, -3e-5, 6.25e-3):
+            for half in (4, 8):
+                assert tf.frontend_raw_len(n_samp, sco, half) == \
+                    jf.frontend_raw_len(n_samp, sco, half)
+
+
 # (n_sym, sym_size, guard, p1_len, pos0): the left-edge case starts the
 # first symbol's stencil left of sample 0; the JAX slice then counts the
 # start from the buffer end and clamps it, and the port must do the same

@@ -4,14 +4,18 @@ repository's bench composes them (`one_superstep`): raw impaired samples
 -> front end -> fused path -> layered LDPC (K1 in interpret mode) -> BCH
 gate -> BB bytes, at the 8K/16QAM SHORT mode.  Decoded BB bytes, hashes
 and sweep counts must be equal, and the TS reassembled from every frame
-must be the transmitted TS.  Also: the port imports and runs with jax
-and the JAX package blocked."""
+must be the transmitted TS.  The step's gates on host-modulated frames
+impaired on the CPU, with the tracking state acquired: every hash, every
+codeword BCH-clean and a kept frame's TS, at clean, 9 dB, 10 dB and 9 dB
+with an echo.  Also: the port imports and runs with jax and the JAX
+package blocked."""
 import subprocess
 import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sdr_receiver_dvb_t2_tpu.dvbt2.params import (
@@ -21,6 +25,8 @@ from sdr_receiver_dvb_t2_tpu.ops import fec_device as jfec
 from sdr_receiver_dvb_t2_tpu.ops import frontend_device as jfe
 from sdr_receiver_dvb_t2_tpu.ops import ldpc_pallas as qldpc
 from sdr_receiver_dvb_t2_tpu.rx import fusedpath as jfp
+from sdr_receiver_dvb_t2_tpu_torch.dvbt2 import bbframe
+from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered
 from sdr_receiver_dvb_t2_tpu_torch.rx import superstep as tss
 from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen
 from sdr_receiver_dvb_t2_tpu_torch.utils.reference import from_reference as R
@@ -129,6 +135,76 @@ def test_tracking_estimate_on_port_impaired_capture():
     assert abs(pos0 - HALF * (1 + benchgen.SCO)) < 1.0
     np.testing.assert_allclose(track.numpy(), [cfo, ratio, pos0, 0.0],
                                rtol=1e-6)
+
+
+GATE_F, GATE_FRAME = 3, 2
+# (AWGN SNR dB or None, the SNR the tracking is acquired at or None,
+# static echo (amp, delay)); inv_nvar is 10**(snr/10), clean 10**3.3
+GATE_CASES = {
+    "clean": (None, None, (0.0, 0)),
+    "9dB": (9.0, 9.0, (0.0, 0)),
+    "10dB": (10.0, 9.0, (0.0, 0)),
+    "9dB-echo-0.15@32": (9.0, 9.0, (0.15, 32)),
+}
+
+
+@pytest.fixture(scope="module")
+def gate_step():
+    """GATE_F frames of the small mode modulated on the host, their BB
+    rows' expected hashes and the step that decodes them."""
+    p, plp = _mode()
+    ts, frames, rows = benchgen.modulate(R(p), R(plp), GATE_F)
+    weights = tss.hash_weights(plp.fec.k_bch // 8, NB)
+    expect = np.stack([tss.expected_hash(rows[f], weights)
+                       for f in range(GATE_F)])
+    step = tss.Superstep(R(p), R(plp), NB, GATE_F, FS, weights)
+    return ts, frames, rows, expect, step
+
+
+@pytest.mark.parametrize("case", list(GATE_CASES))
+def test_step_passes_every_gate_on_impaired_frames(gate_step, monkeypatch,
+                                                   case):
+    """GATE_F frames modulated, impaired on the CPU (CFO, SCO, DC, IQ,
+    AWGN, int16 ADC; an echo where asked), the tracking state acquired by
+    the product's acquisition, then one step through the plain version of
+    the decoder: every frame's hash equals its expectation and differs
+    from its neighbour's, every codeword is BCH-clean, and the kept
+    frame's TS is bit-exact, a run of the transmitted packets."""
+    ts, frames, rows, expect, step = gate_step
+    snr, acq_snr, echo = GATE_CASES[case]
+    nvar = 0.0 if snr is None else 10 ** (-snr / 10)
+    acq_nvar = 0.0 if acq_snr is None else 10 ** (-acq_snr / 10)
+    noise = torch.Generator().manual_seed(7)
+    acq = torch.Generator().manual_seed(11)
+    track, (cfo, _, _) = benchgen.estimate_tracking(frames, acq_nvar, acq,
+                                                    "cpu")
+    assert abs(cfo - CFO) < 5.0
+    raw = benchgen.impaired(frames, nvar, noise, "cpu", echo=echo)
+    inv = torch.tensor(10 ** ((33.0 if snr is None else snr) / 10))
+    plain = []
+    inner = ldpc_layered.decode_plain
+    monkeypatch.setattr(ldpc_layered, "decode_plain",
+                        lambda *a, **k: plain.append(1) or inner(*a, **k))
+    ldpc_layered.ldpc_layered_cuda.launches = 0
+    sums, oks, _, kept = (t.numpy() for t in step(
+        raw[0], raw[1], inv, track, keep=(GATE_FRAME,)))
+    assert len(plain) == GATE_F
+    assert ldpc_layered.ldpc_layered_cuda.launches == 0
+    np.testing.assert_array_equal(sums, expect)
+    for f in range(GATE_F):
+        assert not np.array_equal(sums[f], expect[(f + 1) % GATE_F])
+    np.testing.assert_array_equal(oks, [NB] * GATE_F)
+    got = benchgen.reassemble_ts(kept)
+    asm = bbframe.TSAssembler()
+    asm.push_frames(np.ascontiguousarray(rows[GATE_FRAME]))
+    want = asm.ts_bytes()
+    assert len(want) > 0
+    np.testing.assert_array_equal(got, want)
+    packets = ts.reshape(-1, 188)
+    first = np.flatnonzero((packets == got[:188]).all(1))
+    assert len(first) == 1
+    np.testing.assert_array_equal(
+        got, packets[first[0]:first[0] + len(got) // 188].reshape(-1))
 
 
 def test_hash_catches_slot_and_frame_permutations():

@@ -185,37 +185,41 @@ def test_overlapped_step_equals_frames_one_after_another_on_card():
     order, a strict subset's too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from sdr_receiver_dvb_t2_tpu_torch import bench as tb
-    f = 4
-    p, plp = benchgen.headline_mode(202)
+    f, nb = 4, 202
+    p, plp = benchgen.headline_mode(nb)
     p = dataclasses.replace(p, n_data=60)
     dev = torch.device("cuda")
-    b = tb.Bench(p, plp, f, dev, torch.Generator(dev).manual_seed(7),
-                 torch.Generator(dev).manual_seed(11),
-                 log=lambda *a, **k: None)
-    step = b.step
+    _, frames, rows = benchgen.modulate(p, plp, f)
+    weights = tss.hash_weights(plp.fec.k_bch // 8, nb)
+    expect = np.stack([tss.expected_hash(rows[fi], weights)
+                       for fi in range(f)])
+    step = tss.Superstep(p, plp, nb, f, benchgen.FS, weights)
+    track = torch.tensor([benchgen.CFO_HZ, 1 + benchgen.SCO,
+                          tss.HALF * (1 + benchgen.SCO), benchgen.PHASE0],
+                         device=dev)
     assert tl.resident_ctas(step.decode.tab, dev) == \
         torch.cuda.get_device_properties(dev).multi_processor_count
     assert len(step._side_streams(dev)) == tss.SIDE_STREAMS
-    raw = b.fresh_raw(19.0)
-    inv = torch.tensor(tb._inv_nvar(19.0), device=dev)
+    raw = benchgen.impaired(frames, 10 ** -1.9,
+                            torch.Generator(dev).manual_seed(7), dev)
+    inv = torch.tensor(10 ** 1.9, device=dev)
     keep = tuple(range(f))
-    step(raw[0], raw[1], inv, b.track, keep=keep)          # builds
+    step(raw[0], raw[1], inv, track, keep=keep)          # builds
     torch.cuda.synchronize()
     TRACER.enable()
-    got = step(raw[0], raw[1], inv, b.track, keep=keep)
+    got = step(raw[0], raw[1], inv, track, keep=keep)
     torch.cuda.synchronize()
     on = TRACER.dump(clear=True)["counters"]
-    ref = _sequential(step, raw, inv, b.track, keep)
+    ref = _sequential(step, raw, inv, track, keep)
     torch.cuda.synchronize()
     seq = TRACER.dump(clear=True)["counters"]
     TRACER.disable()
     _assert_same(got, ref)
     # side streams write a strict subset's rows out of frame order
-    _assert_same(step(raw[0], raw[1], inv, b.track, keep=(3, 1)),
+    _assert_same(step(raw[0], raw[1], inv, track, keep=(3, 1)),
                  ref[:3] + (ref[3][[3, 1]],))
     assert got[1].tolist() == [202] * f
     assert int(got[2]) > tss.FLOOR_SWEEPS * f           # past the floor
-    assert torch.equal(got[0].cpu(), torch.from_numpy(b.expect))
+    assert torch.equal(got[0].cpu(), torch.from_numpy(expect))
     assert on.pop("ldpc.overlapped_decodes") == f
     assert on == seq and on["ldpc.codeword_sweeps"] == 202 * int(got[2])
