@@ -33,7 +33,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        K7 (the max-log LLR tail) at the benchmark cells' shape, the UK HD
        mode's 202 blocks and F=64 frames in bf16, against its plain
        version, tolerance 0 (NaN equal to NaN), with and without the EVM
-       planes, timed beside its bound and the plain version.
+       planes, timed beside its bound and the plain version;
+       K8 (the front end's slice corrector) at the same cells' shape, the
+       UK HD mode's 60 windows of 32768 samples and F=64 frames, bf16 out,
+       against its plain version on the same arguments, tolerance 0, timed
+       beside its bound, the plain version and the whole front end.
      Then the layered kernel body on every code `qc_tables` knows (13) at
      B=8 (`tools/ldpc_layer_bench.check_all_codes`): 3 fixed sweeps in
      natural order through K3's and K4's doors, the adaptive exit in
@@ -126,6 +130,7 @@ PALLAS = "sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py"
 SOURCE = "sdr_receiver_dvb_t2_tpu_torch/csrc/ldpc_layered.cu"
 SOURCE_K6 = "sdr_receiver_dvb_t2_tpu_torch/csrc/fft_stage1.cu"
 SOURCE_K7 = "sdr_receiver_dvb_t2_tpu_torch/csrc/llr_tail.cu"
+SOURCE_K8 = "sdr_receiver_dvb_t2_tpu_torch/csrc/frontend_correct.cu"
 # published peaks of one H100 SXM, for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -139,6 +144,7 @@ OPS_PER_EDGE_CHECK = 2
 FFT_FRAMES = 32            # frames of the K6 check and the FFT microbench
 K7_BLOCKS = 202            # K7's check at the benchmark cells' shape:
 K7_FRAMES = 64             # the UK HD mode's blocks, F frames per step
+K8_FRAMES = 64             # K8's check at the cells' shape: F per step
 STREAM_FRAMES = 4          # frames of the vendor-rate streaming captures
 STREAM_TAIL = 4096         # samples of the next frame played after the last
 CLI_FRAMES = 4             # frames of the capture the CLI phase writes
@@ -159,7 +165,7 @@ def log(msg):
 
 
 def kernel_wrappers():
-    """{name: the launch-counting wrapper} of K1-K7 (the package's table)."""
+    """{name: the launch-counting wrapper} of K1-K8 (the package's table)."""
     from sdr_receiver_dvb_t2_tpu_torch.ops import kernel_wrappers as table
     return table()
 
@@ -192,7 +198,8 @@ def phase_build():
     t0 = time.time()
     _build.build_all()
     log(f"[build] csrc/*.cu in parallel in {time.time() - t0:.2f} s")
-    for name in ("ldpc_layered", "fft_stage1", "llr_tail"):
+    for name in ("ldpc_layered", "fft_stage1", "llr_tail",
+                 "frontend_correct"):
         _build.load(name)
         lines = _build.build_log(name).splitlines()
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
@@ -488,6 +495,74 @@ def phase_k7():
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
 
+def k8_bound(f, windows, slice_len, out_len, elem):
+    """K8's least time: each window's span of the two f32 raw planes read
+    once and the two symbol planes written once, over the memory rate.
+    -> (ms, bytes)."""
+    byts = f * windows * (2 * 4 * slice_len + 2 * elem * out_len)
+    return 1e3 * byts / HBM_BYTES_PER_S, byts
+
+
+def phase_k8():
+    """K8 at the benchmark cells' shape (the UK HD mode's windows, the
+    superstep's symbol order, `K8_FRAMES`, bf16 out) on random raw planes
+    with a DC offset, against its plain version on the arguments the front
+    end handed it, tolerance 0; the kernel's time and the plain version's
+    beside the bound, and the whole front end's (the eager DC/IQ estimate
+    and small terms, then K8).  -> the kernel's record."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import frontend_device as fd
+    from sdr_receiver_dvb_t2_tpu_torch.rx import fusedpath
+    from sdr_receiver_dvb_t2_tpu_torch.rx.superstep import HALF
+    from sdr_receiver_dvb_t2_tpu_torch.tools import fft_microbench as mb
+    from sdr_receiver_dvb_t2_tpu_torch.tools.timing import differing
+    from sdr_receiver_dvb_t2_tpu_torch.utils import benchgen as bg
+    p, _ = bg.headline_mode(K7_BLOCKS)
+    fe = fd.make_frontend_symbols(
+        p.len_frame, p.symbol_size, p.guard_size, bg.FS, half=HALF,
+        sym_order=fusedpath.get_fused_demod(p).sym_order,
+        out_dtype=torch.bfloat16)
+    n_in = fd.frontend_raw_len(p.frame_samples, bg.SCO, HALF)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    raw = [0.3 * torch.randn((K8_FRAMES, n_in), generator=gen,
+                             device="cuda") + dc for dc in (0.01, -0.007)]
+    track = torch.tensor([bg.CFO_HZ, 1 + bg.SCO, HALF * (1 + bg.SCO),
+                          bg.PHASE0], device="cuda")
+    corr, seen = fe.correct, []
+
+    def kernel(*a):
+        seen.append(a)
+        return type(corr).kernel(corr, *a)
+
+    corr.kernel = kernel
+    try:
+        (got_r, got_i), _, _ = fe(*raw, *track)
+    finally:
+        del corr.kernel
+    args, = seen
+    want_r, want_i = corr.plain(*args)
+    n_diff = differing(got_r, want_r) + differing(got_i, want_i)
+    err = max(float((got_r.float() - want_r.float()).abs().max()),
+              float((got_i.float() - want_i.float()).abs().max()))
+    del got_r, got_i, want_r, want_i
+    k_ms = mb.cuda_ms(lambda: corr.kernel(*args), 10)
+    p_ms = mb.cuda_ms(lambda: corr.plain(*args), 2)
+    fe_ms = mb.cuda_ms(lambda: fe(*raw, *track), 10)
+    windows, out_len = p.len_frame, corr.out_len
+    bound, byts = k8_bound(K8_FRAMES, windows, corr.slice_len, out_len, 2)
+    log(f"[K8 vs plain] {windows} windows x {out_len} samples x "
+        f"{K8_FRAMES} frames, bf16 out: {n_diff} values differ, max |diff| "
+        f"{err} (tolerance 0)")
+    log(f"[K8 timing] kernel {k_ms:.3f} ms = {k_ms / K8_FRAMES:.4f} "
+        f"ms/frame, plain version {p_ms:.3f} ms, bound {bound:.3f} ms "
+        f"(bytes; {byts / 1e9:.3f} GB), {100 * bound / k_ms:.0f}% of the "
+        f"bound's rate; the whole front end {fe_ms:.3f} ms = "
+        f"{fe_ms / K8_FRAMES:.4f} ms/frame")
+    if n_diff or err:
+        raise RuntimeError("K8 disagrees with its plain version")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
 def phase_kernels():
     from sdr_receiver_dvb_t2_tpu_torch.dvbt2.params import CodeRate
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_layered as ll
@@ -506,6 +581,7 @@ def phase_kernels():
         "K5": phase_fixed("K5", CodeRate.C2_3, "fused_io", 0.74, 9),
         "K6": phase_k6((FFT_FRAMES, 4 * FFT_FRAMES)),
         "K7": phase_k7(),
+        "K8": phase_k8(),
     }
 
 
@@ -1240,14 +1316,15 @@ def main():
              "K2": "ldpc_layered_vmem_adaptive",
              "K3": "ldpc_layered_vmem", "K4": "ldpc_layered_hbm",
              "K5": "ldpc_layered_fused_io", "K6": "fft_stage1",
-             "K7": "llr_tail"}
+             "K7": "llr_tail", "K8": "frontend_correct"}
     replaces = {"K1": f"{PALLAS}:819", "K2": f"{PALLAS}:665",
                 "K3": f"{PALLAS}:1020", "K4": f"{PALLAS}:227",
                 "K5": f"{PALLAS}:1137", "K6": "tools/fft_microbench.py:147",
-                "K7": "none (XLA fused the JAX package's LLR tail)"}
-    sources = {"K6": SOURCE_K6, "K7": SOURCE_K7}
+                "K7": "none (XLA fused the JAX package's LLR tail)",
+                "K8": "none (XLA fused the JAX package's slice corrector)"}
+    sources = {"K6": SOURCE_K6, "K7": SOURCE_K7, "K8": SOURCE_K8}
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"):
         rec = dict(checks[k])
         n = (launches[k] + rx_launches[k] + fe_launches[k]
              + cli_launches[k] + ber_launches[k] + dist_launches[k]

@@ -14,18 +14,25 @@ reads at the post-P1, post-guard sample grid.
 The TPU version scans over OFDM symbols or output chunks; here every
 (frame, symbol or chunk, sample) position is computed in one batched pass.  Scalar arguments
 (cfo_hz, ratio, pos0, phase0) are taken as f32, as the TPU version's traced
-scalars are, and every float operation runs eagerly in the same order: no
-multiply-add is contracted, which `_mod2pi_prod` needs.
+scalars are, and every float operation runs in the same order: no
+multiply-add is contracted, which `_mod2pi_prod` needs.  The small terms
+(the estimates, the NCO's cos and sin, the window grid) run eagerly; the
+slice corrector over the windows (`SliceCorrector`) is on the card one
+launch of the hand-written kernel K8 (`csrc/frontend_correct.cu`), bit-equal
+to its eager plain version, which CPU tensors take.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import numpy as np
 import torch
 
+from .. import _build
 from .._device import DeviceConst
+from ..utils.metrics import count
 
 
 # --------------------------------------------------------------------------
@@ -83,14 +90,19 @@ def _horner(cf_t: list, mu: torch.Tensor) -> torch.Tensor:
     return wt
 
 
+def _window_starts(s: torch.Tensor, n: int, length: int) -> torch.Tensor:
+    """The starts (M,) that windows of `length` at s (M,) read from an axis
+    of n, with the semantics of `jax.lax.dynamic_slice_in_dim`: a negative
+    start counts from the end of the axis, then the start clamps into
+    [0, n - length]."""
+    return torch.where(s < 0, s + n, s).clamp(0, n - length)
+
+
 def _slices(x: torch.Tensor, s: torch.Tensor, length: int) -> torch.Tensor:
     """x (F, n, ...) and starts s (M,) -> (F, M, length, ...) windows
-    x[:, s_m : s_m + length], with the start semantics of
-    `jax.lax.dynamic_slice_in_dim`: a negative start counts from the end
-    of the axis, then the start clamps into [0, n - length]."""
-    n = x.shape[1]
-    s = torch.where(s < 0, s + n, s).clamp(0, n - length)
-    idx = s[:, None] + torch.arange(length, device=x.device)
+    x[:, s_m : s_m + length], the starts taken as `_window_starts` does."""
+    idx = (_window_starts(s, x.shape[1], length)[:, None]
+           + torch.arange(length, device=x.device))
     return x[:, idx]
 
 
@@ -147,41 +159,163 @@ def _nco_terms(cfo_hz, ratio, phase0, fs, slice_len, f, n_in):
     return (w, cr, sr, foff, phase0)
 
 
-def _make_slice_corrector(out_len: int, slice_len: int, cf):
+def _window_phase(nco, s: torch.Tensor):
+    """cos and sin (F, M) of the NCO phase at the window starts s (M,) of
+    each frame: phase0 + fi*theta + w*s; the start s < 2^24 is exact in
+    f32 (unclamped, as the TPU version's phase uses it)."""
+    w, _, _, foff, phase0 = nco
+    base = (phase0 + foff)[:, None] + w * s.float()[None, :]
+    return torch.cos(base), torch.sin(base)
+
+
+class SliceCorrector:
     """DC/IQ apply + NCO + Farrow Horner over windows of the raw planes.
 
-    -> correct(xr, xi, s (M,) int64, mu (M, out_len), est, nco)
-       -> (out_r, out_i) of (F, M, out_len): window m starts at raw index
-       s[m] and output sample l of it interpolates at s[m] + l + mu[m, l]
-       (+ the stencil offset)."""
+    corrector(raw_r, raw_i (F, n_in) f32, pad, s (M,) int64, mu (M,
+    out_len), est, nco, out_dtype=None) -> (out_r, out_i) of (F, M,
+    out_len), f32 or `out_dtype`: the raw planes are read as if zero-padded
+    by `pad` samples; window m starts at raw index s[m] (taken as
+    `_window_starts` does) and output sample l of it interpolates at
+    s[m] + l + mu[m, l] (+ the stencil offset).  A CPU tensor takes
+    `plain`, a CUDA tensor `kernel` (K8, `csrc/frontend_correct.cu`); the
+    two are bit-equal.  The tracer's counter "frontend.kernel_frames" adds
+    the frames K8 corrected (0 on the CPU)."""
 
-    def correct(xr, xi, s, mu, est, nco):
+    def __init__(self, out_len: int, slice_len: int, cf):
+        self.out_len, self.slice_len, self.cf = out_len, slice_len, cf
+        flat = [c for cf_t in cf for c in cf_t]
+        self._coef = (ctypes.c_float * len(flat))(*flat)
+
+    def __call__(self, raw_r, raw_i, pad, s, mu, est, nco, out_dtype=None):
+        if raw_r.device.type == "cpu":
+            out = self.plain(raw_r, raw_i, pad, s, mu, est, nco, out_dtype)
+        else:
+            out = self.kernel(raw_r, raw_i, pad, s, mu, est, nco, out_dtype)
+        count("frontend.kernel_frames", raw_r.shape[0] if raw_r.is_cuda
+              else 0)
+        return out
+
+    def plain(self, raw_r, raw_i, pad, s, mu, est, nco, out_dtype=None):
+        """The plain PyTorch version on any device: the raw planes padded
+        with `pad` zeros, then every operation one eager pass over (F, M,
+        slice_len), then the cast to `out_dtype`."""
+        out_len, slice_len = self.out_len, self.slice_len
         dc_i, dc_q, g, c, rs = est
-        w, cr, sr, foff, phase0 = nco
+        _, cr, sr, _, _ = nco
+        xr = torch.nn.functional.pad(raw_r, (0, pad))
+        xi = torch.nn.functional.pad(raw_i, (0, pad))
         sli = _slices(xr, s, slice_len)               # (F, M, slice_len)
         slq = _slices(xi, s, slice_len)
         i = sli - dc_i[:, :, None]
         q = ((slq - dc_q[:, :, None]) * g[:, :, None]
              - c[:, :, None] * i) * rs[:, :, None]
-        # phase at raw index m of frame fi: phase0 + fi*theta + w*m; the
-        # window start s < 2^24 is exact in f32 (unclamped, as the TPU
-        # version's phase uses it)
-        base = (phase0 + foff)[:, None] + w * s.float()[None, :]
-        cb, sb = torch.cos(base)[..., None], torch.sin(base)[..., None]
+        cb, sb = (v[..., None] for v in _window_phase(nco, s))
         cm = cb * cr - sb * sr
         sm = sb * cr + cb * sr
         ir = i * cm + q * sm
         qr = q * cm - i * sm
         accr = acci = None
-        for t, cf_t in enumerate(cf):
+        for t, cf_t in enumerate(self.cf):
             wt = _horner(cf_t, mu)
             tr = ir[..., t:t + out_len] * wt
             tq = qr[..., t:t + out_len] * wt
             accr = tr if accr is None else accr + tr
             acci = tq if acci is None else acci + tq
+        if out_dtype is not None:
+            accr, acci = accr.to(out_dtype), acci.to(out_dtype)
         return accr, acci
 
-    return correct
+    def kernel(self, raw_r, raw_i, pad, s, mu, est, nco, out_dtype=None):
+        """K8 (CUDA tensors only): the raw planes read in place, each
+        window position once per frame, the outputs written once."""
+        f, n_in = raw_r.shape
+        dev = raw_r.device
+        if not raw_r.is_cuda or raw_r.dtype != torch.float32 \
+                or raw_i.shape != raw_r.shape or raw_i.dtype != raw_r.dtype \
+                or raw_i.device != dev or raw_i.stride() != raw_r.stride():
+            raise ValueError(
+                "frontend_correct_cuda: expected two CUDA f32 (F, n_in) "
+                f"planes of one shape and strides, got {tuple(raw_r.shape)} "
+                f"{raw_r.dtype} on {dev} and {tuple(raw_i.shape)} "
+                f"{raw_i.dtype} on {raw_i.device}")
+        dtype = torch.float32 if out_dtype is None else out_dtype
+        starts = _window_starts(s, n_in + pad, self.slice_len)
+        cb, sb = _window_phase(nco, s)
+        shape = (f, s.shape[0], self.out_len)
+        out_r = torch.empty(shape, dtype=dtype, device=dev)
+        out_i = torch.empty(shape, dtype=dtype, device=dev)
+        frontend_correct_cuda(self, raw_r, raw_i, starts, mu, est, cb, sb,
+                              nco, out_r, out_i)
+        return out_r, out_i
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("frontend_correct")
+    if lib.frontend_correct.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.frontend_correct.argtypes = ([p] * 2 + [ll] * 3 + [p] * 13
+                                         + [i] * 4 + [p] + [i] * 3 + [p])
+        lib.frontend_correct.restype = i
+        lib.frontend_correct_error_string.argtypes = [i]
+        lib.frontend_correct_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_OUT_BYTES = {torch.bfloat16: 2, torch.float32: 4}
+
+
+def frontend_correct_cuda(corrector: SliceCorrector, raw_r, raw_i, starts,
+                          mu, est, cb, sb, nco, out_r, out_i):
+    """K8 on the card: `corrector`'s tap bank, the raw f32 planes (F, n_in)
+    (any strides, the same for both), the clamped window starts (M,), mu
+    (M, out_len), est's five (F, 1) terms, cb and sb (F, M), nco's cr and
+    sr (1, slice_len), all CUDA tensors of one device; writes out_r and
+    out_i, contiguous (F, M, out_len) of f32 or bf16."""
+    dev = raw_r.device
+    f, n_in = raw_r.shape
+    m = starts.shape[0]
+    _, cr, sr, _, _ = nco
+    flat = [v.contiguous() for v in
+            (mu, *est, cb, sb, cr, sr)]
+    starts = starts.to(torch.int64).contiguous()
+    for t in flat + [starts, out_r, out_i]:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError("frontend_correct_cuda needs CUDA tensors on "
+                             "one device")
+    if any(t.dtype != torch.float32 for t in flat):
+        raise ValueError("frontend_correct_cuda: mu, the estimates and the "
+                         "NCO terms must be f32")
+    shape = (f, m, corrector.out_len)
+    if out_r.dtype not in _OUT_BYTES or out_i.dtype != out_r.dtype \
+            or tuple(out_r.shape) != shape or tuple(out_i.shape) != shape \
+            or not out_r.is_contiguous() or not out_i.is_contiguous():
+        raise ValueError("frontend_correct_cuda: out_r and out_i must be "
+                         f"contiguous f32 or bf16 {shape} tensors")
+    mu, dc_i, dc_q, g, c, rs, cb, sb, cr, sr = flat
+    if tuple(mu.shape) != (m, corrector.out_len) \
+            or any(v.numel() != f for v in (dc_i, dc_q, g, c, rs)) \
+            or any(tuple(v.shape) != (f, m) for v in (cb, sb)) \
+            or any(v.numel() != corrector.slice_len for v in (cr, sr)):
+        raise ValueError("frontend_correct_cuda: mu, the estimates or the "
+                         "NCO terms do not match the planes and windows")
+    n_taps = len(corrector.cf)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.frontend_correct(
+            raw_r.data_ptr(), raw_i.data_ptr(), *raw_r.stride(), n_in,
+            starts.data_ptr(), *(t.data_ptr() for t in flat),
+            out_r.data_ptr(), out_i.data_ptr(), f, m, corrector.out_len,
+            corrector.slice_len, ctypes.addressof(corrector._coef), n_taps,
+            len(corrector.cf[0]) - 1, _OUT_BYTES[out_r.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("frontend_correct_cuda: "
+                           + lib.frontend_correct_error_string(err).decode())
+    frontend_correct_cuda.launches += 1
+    return out_r, out_i
+
+
+frontend_correct_cuda.launches = 0
 
 
 def _chunk_grid(n_chunks: int, chunk: int, pos0, delta, half: int, dev):
@@ -220,7 +354,7 @@ def make_frontend(n_out: int, fs: float, half: int = 8, chunk: int = CHUNK,
     cf = _bank(half)
     n_chunks = -(-n_out // chunk)
     slice_len = chunk + 2 * half + 2
-    correct = _make_slice_corrector(chunk, slice_len, cf)
+    correct = SliceCorrector(chunk, slice_len, cf)
 
     def frontend_planar(raw_r, raw_i, cfo_hz, ratio, pos0, phase0):
         f, n_in = raw_r.shape
@@ -229,15 +363,14 @@ def make_frontend(n_out: int, fs: float, half: int = 8, chunk: int = CHUNK,
                                        (cfo_hz, ratio, pos0, phase0))
         est, dc_out, giq = _estimate_dciq(raw_r, raw_i)
         nco = _nco_terms(cfo_hz, ratio, phase0, fs, slice_len, f, n_in)
-        pad = n_chunks * chunk + slice_len - n_in + half
-        xr = torch.nn.functional.pad(raw_r, (0, max(pad, 0)))
-        xi = torch.nn.functional.pad(raw_i, (0, max(pad, 0)))
+        pad = max(n_chunks * chunk + slice_len - n_in + half, 0)
         s, mu = _chunk_grid(n_chunks, chunk, pos0, ratio - 1.0, half, dev)
-        out_r, out_i = correct(xr, xi, s, mu, est, nco)
+        out_r, out_i = correct(raw_r, raw_i, pad, s, mu, est, nco)
         return ((out_r.reshape(f, n_chunks * chunk)[:, :n_out],
                  out_i.reshape(f, n_chunks * chunk)[:, :n_out]),
                 dc_out, giq)
 
+    frontend_planar.correct = correct
     if planar:
         return frontend_planar
 
@@ -246,6 +379,7 @@ def make_frontend(n_out: int, fs: float, half: int = 8, chunk: int = CHUNK,
             raw[..., 0], raw[..., 1], cfo_hz, ratio, pos0, phase0)
         return torch.stack([out_r, out_i], -1), dc_out, giq
 
+    frontend.correct = correct
     return frontend
 
 
@@ -268,7 +402,7 @@ def make_frontend_symbols(n_sym: int, sym_size: int, guard: int, fs: float,
         raise ValueError("sym_order is not a permutation of the symbols")
     cf = _bank(half)
     slice_len = fft + 2 * half + 2
-    correct = _make_slice_corrector(fft, slice_len, cf)
+    correct = SliceCorrector(fft, slice_len, cf)
     # first post-guard sample of each emitted symbol, clean coordinates
     # (copied to a device once: a copy from host memory per call would
     # wait for the device)
@@ -281,10 +415,8 @@ def make_frontend_symbols(n_sym: int, sym_size: int, guard: int, fs: float,
                                        (cfo_hz, ratio, pos0, phase0))
         est, dc_out, giq = _estimate_dciq(raw_r, raw_i)
         nco = _nco_terms(cfo_hz, ratio, phase0, fs, slice_len, f, n_in)
-        pad = int(np.ceil((p1_len + n_sym * sym_size + 2) * 1.001)) \
-            + slice_len - n_in + half
-        xr = torch.nn.functional.pad(raw_r, (0, max(pad, 0)))
-        xi = torch.nn.functional.pad(raw_i, (0, max(pad, 0)))
+        pad = max(int(np.ceil((p1_len + n_sym * sym_size + 2) * 1.001))
+                  + slice_len - n_in + half, 0)
         k_local = torch.arange(fft, dtype=torch.float32, device=dev)
         delta = ratio - 1.0
         k0 = k0_const.on(dev)
@@ -293,11 +425,11 @@ def make_frontend_symbols(n_sym: int, sym_size: int, guard: int, fs: float,
         b = torch.floor(torch.minimum(r0, r0 + (fft - 1) * delta))
         mu = r - b[:, None]
         s = (k0 + b.to(torch.int64)) - (half - 1)
-        sym_r, sym_i = correct(xr, xi, s, mu, est, nco)
-        if out_dtype is not None:
-            sym_r, sym_i = sym_r.to(out_dtype), sym_i.to(out_dtype)
+        sym_r, sym_i = correct(raw_r, raw_i, pad, s, mu, est, nco,
+                               out_dtype)
         return (sym_r, sym_i), dc_out, giq
 
+    frontend.correct = correct
     return frontend
 
 

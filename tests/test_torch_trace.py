@@ -173,12 +173,13 @@ def test_on_step_spans_nest_with_ids_on_the_trace_clock(cell, tmp_path):
         lead = base + e["ts"] * 1e3 - s["start_ns"]
         assert 0 <= lead < 1e6, (s["name"], lead)
     # the decoder's counters: 3 codewords x 8 sweeps per frame, no vote
-    # before the floor, the first one clean; on the CPU no decode overlaps
-    # and no LLR tail runs K7
+    # before the floor, the first one clean; on the CPU no decode overlaps,
+    # no LLR tail runs K7 and no front end runs K8
     assert TRACER.counters() == {"ldpc.codeword_sweeps": NB * 8 * F,
                                  "ldpc.clean_codeword_sweeps": 0,
                                  "ldpc.overlapped_decodes": 0,
-                                 "demod.llr_kernel_frames": 0}
+                                 "demod.llr_kernel_frames": 0,
+                                 "frontend.kernel_frames": 0}
 
 
 def test_acquisition_records_one_span_and_its_rounds(cell):
@@ -260,9 +261,11 @@ def test_step_on_card_never_waits_for_the_device(cell, monkeypatch, on):
     assert oks.tolist() == [NB] * F and int(iters) == 8 * F
     dump = TRACER.dump()
     assert len(dump["spans"]) == (len(STEP_SPANS) if on else 0)
-    # on the card the step's LLR tail is K7, over its F frames
+    # on the card the step's LLR tail is K7 and its slice corrector K8,
+    # each over its F frames
     assert dump["counters"] == ({"ldpc.codeword_sweeps": NB * 8 * F,
                                  "ldpc.clean_codeword_sweeps": 0,
                                  "ldpc.overlapped_decodes": 0,
-                                 "demod.llr_kernel_frames": F}
+                                 "demod.llr_kernel_frames": F,
+                                 "frontend.kernel_frames": F}
                                 if on else {})
