@@ -184,12 +184,15 @@ def window_numbers(inputs, records, kept) -> dict:
     return {"bad_frames": bad, "byte_errors": errs}
 
 
-def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:
-    """-> (every number within its limit, {name: {"value", "limit"}})."""
+def verdict(numbers: dict, limits: dict, exact=EXACT,
+            tolerance=TOLERANCE) -> tuple[bool, dict]:
+    """-> (every number within its limit, {name: {"value", "limit"}}):
+    the names of `exact` at the limit 0, those of `tolerance` at the
+    workload file's."""
     table = {}
-    for name in EXACT + TOLERANCE:
+    for name in exact + tolerance:
         if name in numbers:
             table[name] = {"value": numbers[name],
-                           "limit": 0 if name in EXACT else limits[name]}
+                           "limit": 0 if name in exact else limits[name]}
     ok = all(v["value"] <= v["limit"] for v in table.values())  # NaN fails
     return ok, table

@@ -20,16 +20,34 @@ import argparse
 import gc
 import json
 import sys
+import time
 
 import torch
 
-from . import cells, check
+from . import cells, check, stream
+
+
+def stream_readings(wl: dict, cfg: dict, seed: int, control: bool,
+                    device) -> list[dict]:
+    """A live-path cell: the program's numbers from a run with a window of
+    one block, and the control's (`stream.control_numbers`)."""
+    out = stream.execute(wl, cfg, seed, 0.0, False, device,
+                         time.perf_counter())
+    sides = [("program", out["numbers"])]
+    if control:
+        sides.append(("control", {**out["numbers"], **stream.control_numbers(
+            out["inputs"])}))
+    return [{"seed": seed, "side": side,
+             "correct": stream.verdict(numbers, wl["limits"])[0], **numbers}
+            for side, numbers in sides]
 
 
 def readings(name: str, seed: int, control: bool, device) -> list[dict]:
     """The program's numbers and verdict on `seed` and, with `control`,
     the control's."""
     _, wl, cfg = cells.specs(name)
+    if stream.is_stream(wl):
+        return stream_readings(wl, cfg, seed, control, device)
     inputs = cells.Inputs(cfg, wl, seed, device, pool=1)
     prog = cells.Program(inputs)
     frames = sorted(int(f) for f in inputs.sample_rng.choice(

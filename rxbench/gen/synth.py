@@ -99,6 +99,23 @@ def probe_maps(p: T2Params, plp: PLPParams, l1_arr: np.ndarray,
     return cells0.reshape(-1), cellmap, overlay
 
 
+def encode(plp: PLPParams, bb: np.ndarray):
+    """(n, k_bch) unscrambled BB frames -> (rows (n, k_bch // 8) uint8 as
+    the receiver's byte pack returns them, codewords (n, n_ldpc) uint8 in
+    natural order, cells (n, cpf) complex: rotated and Q-delayed, before
+    the cell and time interleavers)."""
+    fec = plp.fec
+    rows = np.packbits(bb, axis=1)
+    scrambled = bbframe.scramble(bb)
+    bch_cw = bch.encode(plp.fec_frame, scrambled, fec.t_bch)
+    codewords = ldpc.encode(ldpc.get_code(plp.fec_frame, plp.rate), bch_cw)
+    pperm = interleavers.parity_interleaver_perm(fec.n_ldpc, fec.k_ldpc,
+                                                fec.q_ldpc)
+    addr = interleavers.bit_interleaver_perm(plp.constellation,
+                                            plp.fec_frame, plp.rate)
+    return rows, codewords, txfec.map_cells(plp, codewords[:, pperm][:, addr])
+
+
 class BaseFrame:
     """One frame's payload and ingredients, from a seed: a random TS
     through the mode adapter into nb BB frames, their codewords and cells,
@@ -110,7 +127,6 @@ class BaseFrame:
 
     def __init__(self, p: T2Params, plp: PLPParams, seed: int):
         self.p, self.plp = p, plp
-        fec = plp.fec
         taps = []
         mod = T2Modulator(p, [plp], bb_tap=lambda fi, pid, bb: taps.append(bb))
         rng = np.random.default_rng(seed)
@@ -118,17 +134,7 @@ class BaseFrame:
                           ).astype(np.uint8)
         ts[:, 0] = 0x47
         out = mod.modulate(ts.reshape(-1), 1)
-        bb0 = taps[0]
-        self.rows = np.packbits(bb0, axis=1)
-        scrambled = bbframe.scramble(bb0)
-        bch_cw = bch.encode(plp.fec_frame, scrambled, fec.t_bch)
-        self.codewords = ldpc.encode(ldpc.get_code(plp.fec_frame, plp.rate),
-                                     bch_cw)
-        pperm = interleavers.parity_interleaver_perm(fec.n_ldpc, fec.k_ldpc,
-                                                    fec.q_ldpc)
-        addr = interleavers.bit_interleaver_perm(plp.constellation,
-                                                plp.fec_frame, plp.rate)
-        cells0 = txfec.map_cells(plp, self.codewords[:, pperm][:, addr])
+        self.rows, self.codewords, cells0 = encode(plp, taps[0])
         self.nb, self.cpf = cells0.shape
         self.l1_arr = np.concatenate([
             l1mod.l1pre_encode(out.l1pre),
@@ -173,35 +179,72 @@ def make_frame_synth(base: BaseFrame, n_frames: int, device):
     if n_frames > n_cells // cpf:
         raise ValueError(f"n_frames ({n_frames}) must be <= the FEC-block "
                          f"count ({n_cells // cpf}) for distinct frames")
-    g, n_fft, body_len = p.guard_size, p.fft_size, p.frame_samples - 2048
-    right = n_fft - p.k_total - p.left_nulls
-
-    def planes(v, scale):
-        s = torch.tensor(scale / 32000.0, dtype=torch.float32,
-                         device=v.device)
-        return torch.complex(v[..., 0].float() * s, v[..., 1].float() * s)
-
     def synth(offset: int) -> torch.Tensor:
         dev = ship["cmap"].device
         cmap = ship["cmap"].long()
-        overlay_c = planes(ship["overlay"], o_scale).reshape(-1)
-        stream = planes(ship["stream"], s_scale)
+        overlay_c = _planes(ship["overlay"], o_scale).reshape(-1)
+        stream = _planes(ship["stream"], s_scale)
         neg = cmap < 0
         safe = cmap.clamp(min=0)
         out = torch.empty((n_frames, p.frame_samples), dtype=torch.complex64,
                           device=dev)
-        out[:, :2048] = planes(ship["p1"], p_scale)
-        scale = torch.tensor(n_fft / np.sqrt(p.k_total), dtype=torch.float32,
-                             device=dev)
+        out[:, :2048] = _planes(ship["p1"], p_scale)
         for f in range(n_frames):
             data = stream[(safe + (f + offset) * cpf) % n_cells]
-            car = torch.where(neg, overlay_c, data).reshape(p.len_frame,
-                                                            p.k_total)
-            spec = torch.roll(torch.nn.functional.pad(
-                car, (p.left_nulls, right)), -(n_fft // 2), dims=1)
-            sym = torch.fft.ifft(spec, dim=1) * scale
-            out[f, 2048:] = torch.cat([sym[:, -g:], sym], 1).reshape(body_len)
+            out[f, 2048:] = _ofdm_body(p, torch.where(neg, overlay_c, data))
         return out
+
+    return synth
+
+
+def _planes(v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Shipped int16 re/im (`_int16`) back to complex64 at `scale`."""
+    s = torch.tensor(scale / 32000.0, dtype=torch.float32, device=v.device)
+    return torch.complex(v[..., 0].float() * s, v[..., 1].float() * s)
+
+
+def _ofdm_body(p: T2Params, cells: torch.Tensor) -> torch.Tensor:
+    """One frame's carriers ((len_frame * k_total,) complex, symbol-major)
+    -> its samples after P1: each symbol's IFFT with its guard interval."""
+    g, n_fft = p.guard_size, p.fft_size
+    right = n_fft - p.k_total - p.left_nulls
+    scale = torch.tensor(n_fft / np.sqrt(p.k_total), dtype=torch.float32,
+                         device=cells.device)
+    spec = torch.roll(torch.nn.functional.pad(
+        cells.reshape(p.len_frame, p.k_total), (p.left_nulls, right)),
+        -(n_fft // 2), dims=1)
+    sym = torch.fft.ifft(spec, dim=1) * scale
+    return torch.cat([sym[:, -g:], sym], 1).reshape(p.frame_samples - 2048)
+
+
+def make_slot_synth(base: BaseFrame, cells: np.ndarray, device):
+    """Device synthesis of frames whose FEC-block slots carry any rows of
+    a table of blocks: base's frame (its L1, carrier map and P1) with slot
+    b carrying `cells[sources[b]]` ((n, cpf) rotated, Q-delayed cells, as
+    `encode` returns them; a valid frame, as in `make_frame_synth`).
+
+    -> synth(sources (nb,) ints) -> (frame_samples,) complex64 on
+    `device`.  The ingredients ship as int16, as `make_frame_synth`'s do."""
+    p, cpf = base.p, base.cpf
+    c_scale = float(np.max(np.abs(np.stack([cells.real, cells.imag]))))
+    o_scale = float(np.max(np.abs(np.stack([base.overlay.real,
+                                            base.overlay.imag]))))
+    p_scale = float(np.max(np.abs(np.stack([base.p1.real, base.p1.imag]))))
+    table = _planes(torch.from_numpy(_int16(cells.reshape(-1), c_scale)
+                                     ).to(device), c_scale)
+    overlay = _planes(torch.from_numpy(_int16(base.overlay, o_scale)
+                                       ).to(device), o_scale).reshape(-1)
+    p1 = _planes(torch.from_numpy(_int16(base.p1, p_scale)).to(device),
+                 p_scale)
+    cmap = torch.from_numpy(base.cellmap.reshape(-1)).to(device)
+    neg = cmap < 0
+    slot, within = cmap.clamp(min=0) // cpf, cmap.clamp(min=0) % cpf
+
+    def synth(sources) -> torch.Tensor:
+        src = torch.as_tensor(np.asarray(sources, np.int64), device=device)
+        data = table[src[slot] * cpf + within]
+        return torch.cat([p1, _ofdm_body(p, torch.where(neg, overlay,
+                                                        data))])
 
     return synth
 

@@ -37,7 +37,7 @@ import sys                                                   # noqa: E402
 
 import torch                                                 # noqa: E402
 
-from . import cells, check, trace                            # noqa: E402
+from . import cells, check, stream, trace                    # noqa: E402
 
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "sdr_receiver_dvb_t2_tpu"})
 SAMPLED_FROM = 16             # the steps compared in full are drawn
@@ -84,6 +84,66 @@ def cell_metrics(kind: str, cell: str) -> list[dict]:
             if "workloads" not in m or cell in m["workloads"]]
 
 
+def read_metrics(cell: str, tracing: bool, rec: dict) -> dict:
+    """The cell's end-to-end metrics (untraced) or per-layer metrics
+    (traced) that their readers find in the run's record."""
+    kind = "per_layer" if tracing else "end_to_end"
+    metrics = {}
+    for m in cell_metrics(kind, cell):
+        v = reader("layer_metrics" if tracing else "end_to_end",
+                   m["name"])(rec)
+        if v is not None:
+            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    return metrics
+
+
+def emit(result: dict, table: dict) -> int:
+    """Print the result line, the numbers compared last on standard error;
+    exit 4 with no result where JAX or the JAX package is loaded."""
+    found = forbidden_modules()
+    if found:
+        log(f"modules of JAX or the JAX package loaded: {found}")
+        return 4
+    for name, row in table.items():
+        log(f"check {name}: {row['value']} (limit {row['limit']})")
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def run_stream(args, wl: dict, cfg: dict, device, patch) -> int:
+    """A cell on the live receive path (`stream.py`)."""
+    on_card = device.type == "cuda"
+    out = stream.execute(wl, cfg, args.seed, args.seconds, bool(args.trace),
+                         device, T0, patch)
+    rec, info = out["rec"], out["info"]
+    log(f"set-up {rec['setup_s']:.2f} s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["setup_parts"].items()))
+    card = card_line() if on_card else "cpu"
+    log(f"window: {info['window_blocks']} blocks, {info['window_frames']} "
+        f"frames in {rec['window_s']:.3f} s; peak device memory "
+        f"{out['peak']} bytes; {card}")
+    for name, sec in out["device_ops"]:
+        log(f"device op {sec:.6f} s: {name}")
+    correct, table = stream.verdict(out["numbers"], wl["limits"])
+    dev = {"platform": "gpu" if on_card else "cpu",
+           "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
+           "count": 1, "memory_peak_bytes": out["peak"]}
+    result = {"correct": correct, "attempted": info["window_frames"],
+              "failed": out["failed"],
+              "metrics": read_metrics(args.workload, bool(args.trace), rec),
+              "device": dev}
+    if args.trace:
+        tr = rec["trace"]
+        dev["busy_s"], dev["window_s"] = tr["busy_s"], tr["window_s"]
+        result["breakdown"] = {"device_ops": tr["device_ops"],
+                               "idle_gaps": tr["idle_gaps"]}
+    result["card"] = card
+    result["stream"] = info
+    result["setup_parts_s"] = out["setup_parts"]
+    result["checks"] = table
+    return emit(result, table)
+
+
 def main(argv=None, device=None, patch=None) -> int:
     """Run a cell and print its result.  `device` (tests only) skips the
     look for a card and runs there; `patch(program)` (tests only) is
@@ -107,6 +167,8 @@ def main(argv=None, device=None, patch=None) -> int:
     on_card = device.type == "cuda"
     log(f"[{args.workload}] seed {args.seed}, {args.seconds:g} s, trace "
         f"{args.trace}")
+    if stream.is_stream(wl):
+        return run_stream(args, wl, cfg, device, patch)
 
     t_in = time.perf_counter()
     inputs = cells.Inputs(cfg, wl, args.seed, device)
@@ -237,13 +299,7 @@ def main(argv=None, device=None, patch=None) -> int:
            "code": (inputs.plp.fec_frame, inputs.plp.rate),
            "num_blocks": inputs.nb, "inv_nvar": inputs.inv_nvar,
            "frames_per_step": n_frames}
-    kind = "per_layer" if tracing else "end_to_end"
-    metrics = {}
-    for m in cell_metrics(kind, args.workload):
-        v = reader("layer_metrics" if tracing else "end_to_end",
-                   m["name"])(rec)
-        if v is not None:
-            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    metrics = read_metrics(args.workload, tracing, rec)
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
            "count": 1, "memory_peak_bytes": peak}
@@ -260,15 +316,7 @@ def main(argv=None, device=None, patch=None) -> int:
     result["acquisition_captures"] = acq_tries
     result["setup_parts_s"] = setup_parts
     result["checks"] = table
-
-    found = forbidden_modules()
-    if found:
-        log(f"modules of JAX or the JAX package loaded: {found}")
-        return 4
-    for name, row in table.items():
-        log(f"check {name}: {row['value']} (limit {row['limit']})")
-    print(json.dumps(result), flush=True)
-    return 0
+    return emit(result, table)
 
 
 if __name__ == "__main__":

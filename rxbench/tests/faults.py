@@ -1,5 +1,7 @@
 """Faults planted under the timed path of a CPU run of the harness, for
-the tests: each must make `correct` come out false.
+the tests: each must make `correct` come out false.  The first four are
+the superstep's (`cells.Program`), the rest the live path's
+(`stream.Program`).
 
     python -c "from rxbench.tests import faults; faults.drive('<fault>', argv)"
 """
@@ -61,8 +63,52 @@ def byte_altered(prog):
     prog.step.bb_pack = altered
 
 
+def ts_byte_altered(prog):
+    """Live path: one byte of each frame's BB frames altered where the
+    device receiver produces them (after BCH, before the TS framer)."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import fec_device
+    bch = fec_device.bch_correct_batch
+
+    def altered(*a, **k):
+        bb = bch(*a, **k).copy()
+        bb[0, 80 + 8 * 20] ^= 1
+        return bb
+    fec_device.bch_correct_batch = altered
+
+
+def frame_dropped_at_seam(prog):
+    """Live path: the capture's loop goes on from its second frame after
+    the seam, so one frame is lost there."""
+    prog.device.restart = int(round(prog.frame_raw))
+
+
+def batch_half_decoded(prog):
+    """Live path: the batched decode decodes the first half of its frames
+    and reports them all done."""
+    batch = prog.rx.decode_frames_batch
+
+    def half(x, starts, *a, **k):
+        done = batch(x, starts[:len(starts) // 2], *a, **k)
+        return len(starts) if done else 0
+    prog.rx.decode_frames_batch = half
+
+
+def frames_unchanged(prog):
+    """Live path: every frame hands the TS framer the first frame's
+    decoded bits."""
+    push, first = prog.rx._push_plp, []
+
+    def stale(plp, dyn, plps, bits, *a, **k):
+        if not first:
+            first.append(bits)
+        return push(plp, dyn, plps, first[0], *a, **k)
+    prog.rx._push_plp = stale
+
+
 FAULTS = {f.__name__: f for f in (ldpc_flip, state_unchanged, half_batch,
-                                  byte_altered)}
+                                  byte_altered, ts_byte_altered,
+                                  frame_dropped_at_seam, batch_half_decoded,
+                                  frames_unchanged)}
 
 
 def drive(fault: str | None, argv: list[str]) -> int:

@@ -14,14 +14,40 @@ CELLS = Path(__file__).resolve().parent / "cells"
 CELL = "test8k.awgn"
 
 
+# The per-layer metrics of a live-path cell (`"path": "stream"`), as
+# BENCHMARK.json would list them: it holds no such cell yet, so the tests
+# add these entries with their test cell.  `device_idle_pct` reads both
+# paths.
+STREAM_METRICS = [
+    {"name": "stream_frontend_ms_per_frame", "unit": "ms", "better": "lower",
+     "source": "program_span",
+     "layer": "streaming front end (ops/frontend_device.DeviceFrontendChain)",
+     "moves": "rx_msamples_per_s"},
+    {"name": "stream_track_ms_per_frame", "unit": "ms", "better": "lower",
+     "source": "program_span",
+     "layer": "host tracking loop (io/devices.StreamingReceiver)",
+     "moves": "rx_msamples_per_s"},
+    {"name": "stream_decode_ms_per_frame", "unit": "ms", "better": "lower",
+     "source": "program_span",
+     "layer": "device receiver decode (rx/device_receiver.py)",
+     "moves": "rx_msamples_per_s"},
+    {"name": "stream_batched_frames_pct", "unit": "%", "better": "higher",
+     "source": "program_counter",
+     "layer": "device receiver decode (rx/device_receiver.py)",
+     "moves": "rx_msamples_per_s"}]
+BOTH_PATHS = ("device_idle_pct",)
+
+
 def tree(dst: Path, cells=(CELL,)) -> Path:
     """Copy BENCHMARK.json and rxbench/ to `dst` and add the named test
     cells (their workload and configuration files from tests/cells/, an
-    entry in BENCHMARK.json each, and their names in every per-layer
-    metric's workloads): no file of the harness is edited."""
+    entry in BENCHMARK.json each, and their names in the workloads of
+    every per-layer metric of their receive path, STREAM_METRICS added
+    for a live-path cell): no file of the harness is edited."""
     shutil.copytree(ROOT / "rxbench", dst / "rxbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    stream_only = {m["name"] for m in STREAM_METRICS}
     for name in cells:
         wl = json.loads((CELLS / f"{name}.json").read_text())
         shutil.copy(CELLS / f"{name}.json", dst / "rxbench" / "workloads")
@@ -30,8 +56,13 @@ def tree(dst: Path, cells=(CELL,)) -> Path:
         bench["workloads"].append({"name": name, "config": wl["config"],
                                    "traffic": name.split(".")[1],
                                    "chips": 1, "why": wl["why"]})
+        live = wl.get("path") == "stream"
+        if live and not stream_only & {m["name"] for m in bench["per_layer"]}:
+            bench["per_layer"] += [dict(m, workloads=[])
+                                   for m in STREAM_METRICS]
         for m in bench["per_layer"]:
-            m.setdefault("workloads", []).append(name)
+            if m["name"] in BOTH_PATHS or (m["name"] in stream_only) == live:
+                m.setdefault("workloads", []).append(name)
     (dst / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
     return dst
 

@@ -77,27 +77,47 @@ class Profile:
     read and dropped before the next: their device seconds and idle gaps
     summed.  `steps` is the indices of the steps traced (the caller's)."""
 
+    # host ranges that name idle gaps: those whose names start with
+    # PREFIX, in two families that each hold ranges following one another
+    # (INNER: the stage ranges), the innermost family searched first
+    PREFIX = "rx."
+    INNER = STAGES
+
     def __init__(self):
         self.busy = self.wall = self.k1 = 0.0
         self.by_op = defaultdict(float)
         self.idle = defaultdict(float)
         self.steps = []
+        self._open = None
 
     def run(self, run_steps):
         """Run `run_steps()` under torch.profiler and add its trace."""
+        self.begin()
+        run_steps()
+        self.end()
+
+    def begin(self):
+        """Start a profiling session (`end` closes and reads it)."""
         from torch.profiler import ProfilerActivity
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        window = torch.autograd.profiler.record_function("rx.window")
+        window.__enter__()
+        self._open = (prof, window, time.perf_counter())
+
+    def end(self):
+        prof, window, t0 = self._open
+        self._open = None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.wall += time.perf_counter() - t0
+        window.__exit__(None, None, None)
+        prof.__exit__(None, None, None)
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
-            with torch.profiler.profile(activities=acts) as prof:
-                with torch.autograd.profiler.record_function("rx.window"):
-                    t0 = time.perf_counter()
-                    run_steps()
-                    if torch.cuda.is_available():
-                        torch.cuda.synchronize()
-                    self.wall += time.perf_counter() - t0
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
@@ -106,9 +126,10 @@ class Profile:
     def _add(self, events):
         dev = [e for e in events
                if e.get("cat") in DEVICE_CATS and "dur" in e]
-        host = [e for e in events if e.get("cat") == "user_annotation"
-                and str(e.get("name", "")).startswith("rx.")]
-        win = next((e for e in host if e["name"] == "rx.window"), None)
+        notes = [e for e in events if e.get("cat") == "user_annotation"]
+        win = next((e for e in notes if e.get("name") == "rx.window"), None)
+        host = [e for e in notes
+                if str(e.get("name", "")).startswith(self.PREFIX)]
         for e in dev:
             self.by_op[e["name"][:NAME_CHARS]] += e["dur"] * 1e-6
             if roofline.is_k1(e["name"]):
@@ -128,16 +149,17 @@ class Profile:
         if hi > cur:
             gaps.append((cur, hi))
         self.busy += busy * 1e-6
-        # name each gap by the innermost rx.* host range open at its
-        # start: the stage ranges follow one another, and so do "rx.step"
-        # and "rx.fetch", so one search in each family finds it
+        # name each gap by the innermost host range open at its start:
+        # the stage ranges follow one another, and so do "rx.step" and
+        # "rx.fetch", so one search in each family finds it
+        cut = len(self.PREFIX)
         families = [sorted((e["ts"], e["ts"] + e["dur"], e["name"])
                            for e in host
-                           if (e["name"][3:] in STAGES) == inner)
+                           if (e["name"][cut:] in self.INNER) == inner)
                     for inner in (True, False)]
         families[1] = [r for r in families[1] if r[2] != "rx.window"]
         for s, t in gaps:
-            name = "outside any rx range"
+            name = f"outside any {self.PREFIX[:-1]} range"
             for fam in families:
                 i = bisect.bisect_right(fam, (s, float("inf"), "")) - 1
                 if i >= 0 and fam[i][0] <= s < fam[i][1]:
